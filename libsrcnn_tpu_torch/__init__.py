@@ -1,15 +1,18 @@
 """libsrcnn_tpu_torch -- the PyTorch / CUDA port of libsrcnn_tpu.
 
 SRCNN 9-1-5 super-resolution with classical interpolation upscaling, on an
-NVIDIA H100: the main path (``upscale`` with the default config: srcnn,
-bicubic, the exact float32 tier) runs color conversion and resize as
-PyTorch ops and the fused conv stack as a hand-written CUDA kernel
-(:mod:`.kernels.fused_conv`).  The JAX package ``libsrcnn_tpu`` is the
-reference the port is tested against; this package never imports jax.
+NVIDIA H100: ``upscale`` (srcnn, any filter, the exact ``float32`` tier or
+the ``bfloat16`` / ``bfloat16_fast`` throughput tiers, the flip
+self-ensemble) runs color conversion and resize as PyTorch ops and the
+fused conv stack as a hand-written CUDA kernel (:mod:`.kernels.fused_conv`);
+:mod:`.serve` batches video clips (``upscale_frames``) and streams frames
+(``VideoUpscaler``).  The JAX package ``libsrcnn_tpu`` is the reference the
+port is tested against; this package never imports jax.
 """
 
 from .config import DEFAULT_CONFIG, FilterType, SRCNNConfig
 from .api import configure_filter_srcnn, process_srcnn, upscale
+from .serve import VideoUpscaler, upscale_frames
 
 __version__ = "0.1.0"
 SRCNN_VERSION = 0x00010A28  # the reference's numeric macro (`libsrcnn.h:35`)
@@ -19,8 +22,10 @@ __all__ = [
     "FilterType",
     "SRCNNConfig",
     "SRCNN_VERSION",
+    "VideoUpscaler",
     "configure_filter_srcnn",
     "process_srcnn",
     "upscale",
+    "upscale_frames",
     "__version__",
 ]

@@ -11,6 +11,7 @@ reproduce the reference's stateful surface and error codes.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import threading
 
@@ -110,8 +111,11 @@ def upscale(
     if float(scale) <= 0.0 or min(scaled_size(w, h, scale)) <= 0:
         raise ValueError(f"invalid scale factor {scale}")
     params = _params_on(params, dev)
-    cur = torch.tensor(img, device=dev)
+    if config.self_ensemble:
+        out, conv = _upscale_flip_ensemble(img, scale, config, params, dev)
+        return (out, conv) if want_conv else out
 
+    cur = torch.tensor(img, device=dev)
     if not config.step_scale:
         out, conv = pipeline.run_pass(cur, params, float(scale), config)
         out, conv = out.cpu().numpy(), conv.cpu().numpy()
@@ -149,6 +153,47 @@ def upscale(
     out = out.cpu().numpy() if out is not None else img.copy()
     conv = conv.cpu().numpy() if conv is not None else None
     return (out, conv) if want_conv else out
+
+
+def _upscale_flip_ensemble(img: np.ndarray, scale, config: SRCNNConfig,
+                           params: dict, dev: torch.device):
+    """Flip self-ensemble (port of ``libsrcnn_tpu/api.py:129-173``): the 4
+    flip variants of ``img`` through the pipeline, outputs unflipped and
+    averaged in f32 before the u8 cast.
+
+    Without step-scale all 4 variants go through ONE batched pass
+    (``serve._ensemble_pass``, which holds the flip bookkeeping).
+    Step-scale chains go through :func:`upscale` per variant and are
+    averaged on the host (``np.rint``, ties to even).  Flips only (no
+    transposes): 90-degree rotations swap H/W and would need a second set
+    of resize tables for non-square frames."""
+    base = dataclasses.replace(config, self_ensemble=False)
+    if not base.step_scale:
+        from . import serve
+
+        out, conv = serve._ensemble_pass(torch.tensor(img, device=dev)[None],
+                                         params, float(scale), base)
+        return out[0].cpu().numpy(), conv[0].cpu().numpy()
+
+    flips = ((False, False), (False, True), (True, False), (True, True))
+
+    def flip(a, fy, fx):
+        return a[::-1 if fy else 1, ::-1 if fx else 1]
+
+    res = [upscale(np.ascontiguousarray(flip(img, fy, fx)), scale, base,
+                   params, True, dev) for fy, fx in flips]
+    outs, convs = [o for o, _ in res], [c for _, c in res]
+    out = np.rint(np.mean(
+        [flip(o, fy, fx).astype(np.float32)
+         for (fy, fx), o in zip(flips, outs)], axis=0)).astype(np.uint8)
+    if any(c is None for c in convs):
+        # a degenerate chain (e.g. scale 1.0) ran zero passes: the plain
+        # step path returns conv=None, so the ensemble does too
+        return out, None
+    conv = np.rint(np.mean(
+        [flip(c, fy, fx).astype(np.float32)
+         for (fy, fx), c in zip(flips, convs)], axis=0)).astype(np.uint8)
+    return out, conv
 
 
 # ---------------------------------------------------------------------------

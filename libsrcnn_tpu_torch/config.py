@@ -48,10 +48,17 @@ class SRCNNConfig:
         derived, see :func:`chroma_filter`).
       step_scale: decompose scale factors > 2 into chained x2 passes with a
         u8 round-trip between passes, mirroring `libsrcnn.cpp:980-1061`.
-      compute_dtype: the conv stack's tier.  Only ``"float32"`` (exact f32,
-        TF32 off) is ported; the ``bfloat16``, ``bfloat16_fast`` and
-        ``int8`` tiers are ROADMAP items M6 and M10.
-      self_ensemble: flip self-ensemble; not ported yet (ROADMAP M7).
+      compute_dtype: the conv stack's tier.  ``"float32"``: exact f32, TF32
+        off (kernel K1).  ``"bfloat16"``: split-bf16x2 on the card (K2:
+        activations split into bf16 hi + lo, bf16 weights, f32
+        accumulation), <=2 u8 off the exact tier on the TPU.
+        ``"bfloat16_fast"``: bf16x1 on the card (K3: one bf16 pass), <=3
+        u8 off.  Off the kernel (``use_kernel=False`` or the CPU) both bf16
+        tiers run the JAX package's XLA twin (bf16-rounded operands, f32
+        accumulation).  ``"int8"`` is not ported yet (ROADMAP M10).
+      self_ensemble: flip self-ensemble: the four flips of the frame go
+        through one batched pass, are flipped back and averaged in f32,
+        then rounded ties-to-even.
       emit_conv_map: also return the raw Y-channel conv3 output as u8
         (`libsrcnn.cpp:889-915`).
       use_kernel: route the conv stack through the hand-written CUDA kernel

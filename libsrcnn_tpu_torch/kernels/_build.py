@@ -3,15 +3,19 @@
 Each ``csrc/<name>.cu`` compiles to its own shared library with a plain
 ``extern "C"`` interface (no PyTorch headers, so a build takes seconds).
 The build runs at first use, on a machine with ``nvcc``, into
-``kernels/_build/`` (listed in ``.gitignore``); the file name carries a hash
-of the source and the flags, so an edited source rebuilds and a stale
-library is never loaded.  Nothing here runs at import time.
+``kernels/_build/`` (listed in ``.gitignore``).  A library's file name
+carries a hash of every source under ``csrc/`` (the ``.cu`` files and the
+``.cuh`` headers they share) and of the flags, so an edited source or
+header rebuilds and a stale library is never loaded.  :func:`build` starts
+one nvcc per missing library, all at once.  Nothing here runs at import
+time.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import glob
 import hashlib
 import os
 import shutil
@@ -46,33 +50,62 @@ def nvcc() -> str:
                        "machine with the CUDA toolkit (set CUDA_HOME)")
 
 
+def sources() -> list[str]:
+    """Every file under ``csrc/`` that a build can read, in a fixed order."""
+    return sorted(glob.glob(os.path.join(CSRC, "*.cu")) +
+                  glob.glob(os.path.join(CSRC, "*.cuh")))
+
+
 def library_path(name: str) -> str:
-    src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest.update(name.encode())
+    for src in sources():
+        digest.update(os.path.basename(src).encode())
+        with open(src, "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
+
+
+def build(*names: str) -> None:
+    """Build ``csrc/<name>.cu`` for each name whose library is missing, one
+    nvcc process per library, all started together."""
+    todo = [n for n in names if not os.path.exists(library_path(n))]
+    if not todo:
+        return
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    jobs = []
+    try:
+        for name in todo:
+            # build to a temporary name, then rename: a concurrent build or
+            # an interrupted one never leaves a half-written library
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp,
+                   os.path.join(CSRC, f"{name}.cu")]
+            jobs.append((name, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        failed = []
+        for name, tmp, proc in jobs:
+            out, _ = proc.communicate()
+            build_logs[name] = out
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed for {name}.cu:\n{out}")
+            else:
+                os.replace(tmp, library_path(name))
+        if failed:
+            raise RuntimeError("\n".join(failed))
+    finally:
+        for _, tmp, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.unlink(tmp)
 
 
 @functools.lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
     """Build ``csrc/<name>.cu`` if its library is missing, then load it."""
-    path = library_path(name)
-    if not os.path.exists(path):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        # build to a temporary name, then rename: a concurrent build or an
-        # interrupted one never leaves a half-written library
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        try:
-            cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp,
-                   os.path.join(CSRC, f"{name}.cu")]
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            build_logs[name] = res.stdout + res.stderr
-            if res.returncode != 0:
-                raise RuntimeError(f"nvcc failed for {name}.cu:\n"
-                                   f"{res.stdout}{res.stderr}")
-            os.replace(tmp, path)
-        finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
-    return ctypes.CDLL(path)
+    build(name)
+    return ctypes.CDLL(library_path(name))

@@ -6,15 +6,16 @@
 //   conv1 9x9 1->64 + b1, ReLU;  conv2 1x1 64->32 + b2, ReLU;
 //   the reference's conv2-output border clamp (libsrcnn.cpp:463-489);
 //   conv3 5x5 32->1 + b3, clamp to [0, 255].
-// Input: the Y plane with a 6 px halo, [h+12, w+12] f32, contiguous.
+// Input: n Y planes with a 6 px halo, [n, h+12, w+12] f32, contiguous; one
+// launch covers the batch (blockIdx.z is the plane).
 //
 // What bounds it: f32 FMA throughput.  The exact tier forbids TF32 and
 // bf16 tensor cores, so every MAC runs on the FMA units: 81*64 + 64*32 =
 // 7,232 MACs per c2 position and 25*32 = 800 per output pixel, with the c2
 // ring of each tile recomputed by its neighbours (16*64 / (12*60) = 1.42x),
-// about 11k MACs per output pixel in all.  Measured on an H100 SXM at
-// 700 W: ~4.1 ms per 2048x2048 plane, ~11 TFMA/s, about 40% of the FMA
-// units' peak.
+// about 11k MACs per output pixel in all, 46 G FMA per 2048x2048 plane.
+// Measured on an H100 SXM at 700 W: ~2.8 ms per 2048x2048 plane, ~16
+// TFMA/s, about half the FMA units' peak (PERF.md).
 //
 // Design:
 // * One block (256 threads) per 12 x 60 output tile.  The block copies its
@@ -36,7 +37,12 @@
 //   ring.  Where the flag is 0 the ring keeps the c2 of the real halo
 //   pixels (banded / sharded callers).  Only blocks on such an edge run it.
 // * conv3: each thread computes a 1 x 4 strip of outputs from shared c2,
-//   with conv3's weights and the biases in __constant__ memory.
+//   the channel loop unrolled by 8 (fully unrolled, the compiler hoists
+//   all 800 shared weights into registers and spills).
+// * Every parameter comes in through the `params` pointer.  w1 and w2 are
+//   staged in shared memory (permuted, above), the biases and conv3's
+//   weights (897 floats) as they are.  No state outlives a launch, so
+//   launches with other parameters on other streams cannot interfere.
 // * Ragged tiles clamp their window reads into the plane and mask their
 //   output stores; offsets into the planes are 64-bit.
 //
@@ -45,27 +51,20 @@
 
 #include <cuda_runtime.h>
 
+#include "srcnn_common.cuh"
+
 namespace {
+
+using namespace srcnn;
 
 constexpr int TH = 12, TW = 60;           // output tile
 constexpr int NT = 256;                   // threads per block
-constexpr int HALO = 6;                   // 4 (conv1) + 2 (conv3)
 constexpr int RH = TH + 4, RW = TW + 4;   // c2 ring tile, 16 x 64
 constexpr int M = RH * RW;                // ring positions
 constexpr int WH = RH + 8, WW = RW + 8;   // input window, 24 x 72
-constexpr int C1 = 64, C2 = 32;
 constexpr int CHUNK = 128;                // ring positions per conv1/conv2 chunk
 constexpr int H1S = CHUNK + 4;            // h1 row stride: spreads banks
 constexpr int C2S = M + 4;                // c2 row stride: spreads banks
-
-// Packed parameter layout; kernels/fused_conv.py::pack_params writes it.
-constexpr int OFF_W1 = 0;                 // [81][64], tap k = 9*dy + dx
-constexpr int OFF_B1 = OFF_W1 + 81 * C1;
-constexpr int OFF_W2 = OFF_B1 + C1;       // [64][32]
-constexpr int OFF_B2 = OFF_W2 + C1 * C2;
-constexpr int OFF_W3 = OFF_B2 + C2;       // [25][32], tap k = 5*dy + dx
-constexpr int OFF_B3 = OFF_W3 + 25 * C2;
-constexpr int N_PARAMS = OFF_B3 + 1;      // 8,129
 
 // Shared memory, in floats; every region starts 16-byte aligned.
 constexpr int SM_WIN = WH * WW;
@@ -73,10 +72,11 @@ constexpr int SM_W1 = 81 * C1;
 constexpr int SM_W2 = C1 * C2;
 constexpr int SM_H1 = C1 * H1S;
 constexpr int SM_C2 = C2 * C2S;
+constexpr int SM_REST = N_PARAMS - SM_W1 - SM_W2;  // b1 b2 w3 b3: 897
+constexpr int SM_RESTP = (SM_REST + 3) / 4 * 4;
 constexpr size_t SMEM_BYTES =
-    (SM_WIN + SM_W1 + SM_W2 + SM_H1 + SM_C2) * sizeof(float);  // 201,216
-
-__constant__ float c_params[N_PARAMS];
+    (SM_WIN + SM_W1 + SM_W2 + SM_H1 + SM_C2 + SM_RESTP) *
+    sizeof(float);                                            // 204,816
 
 __global__ void __launch_bounds__(NT, 1)
 fused_srcnn_kernel(const float* __restrict__ y,
@@ -89,11 +89,18 @@ fused_srcnn_kernel(const float* __restrict__ y,
   float* w2s = w1s + SM_W1;               // [64][32], permuted (below)
   float* h1s = w2s + SM_W2;               // [64][H1S], one chunk
   float* c2s = h1s + SM_H1;               // [32][C2S], the whole ring
+  float* rest = c2s + SM_C2;              // b1 [64], b2 [32], w3 [25][32], b3
+  const float* b1s = rest;
+  const float* b2s = b1s + C1;
+  const float* w3s = b2s + C2;
+  const float* b3s = w3s + 25 * C2;
 
   const int t = threadIdx.x;
   const int r0 = blockIdx.y * TH;         // tile origin, output coordinates
   const int q0 = blockIdx.x * TW;
   const int ph = h + 2 * HALO, pw = w + 2 * HALO;
+  y += (long long)blockIdx.z * ph * pw;   // this block's plane
+  out += (long long)blockIdx.z * h * w;
 
   // Window = padded rows r0 .. r0+WH-1, cols q0 .. q0+WW-1.  Reads past
   // the plane (ragged tiles) are clamped in; they feed only masked outputs.
@@ -112,6 +119,10 @@ fused_srcnn_kernel(const float* __restrict__ y,
   for (int s = t; s < SM_W2; s += NT) {
     const int i = s / 32, r = s % 32;
     w2s[s] = params[OFF_W2 + i * C2 + r / 4 + 8 * (r % 4)];
+  }
+  for (int s = t; s < SM_REST; s += NT) {
+    const int src = s < C1 ? OFF_B1 + s : OFF_B2 + (s - C1);
+    rest[s] = params[src];
   }
   __syncthreads();
 
@@ -149,7 +160,7 @@ fused_srcnn_kernel(const float* __restrict__ y,
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       const int c = g + 8 * i;
-      const float b = c_params[OFF_B1 + c];
+      const float b = b1s[c];
       const float4 v = make_float4(
           fmaxf(acc[0][i] + b, 0.f), fmaxf(acc[1][i] + b, 0.f),
           fmaxf(acc[2][i] + b, 0.f), fmaxf(acc[3][i] + b, 0.f));
@@ -177,7 +188,7 @@ fused_srcnn_kernel(const float* __restrict__ y,
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       const int c = g + 8 * q;
-      const float b = c_params[OFF_B2 + c];
+      const float b = b2s[c];
       const float4 v = make_float4(
           fmaxf(a2[0][q] + b, 0.f), fmaxf(a2[1][q] + b, 0.f),
           fmaxf(a2[2][q] + b, 0.f), fmaxf(a2[3][q] + b, 0.f));
@@ -187,26 +198,15 @@ fused_srcnn_kernel(const float* __restrict__ y,
   }
 
   // ---- border clamp on the ring: global c2 rows r0-2 .. r0+RH-3 ----
-  const int lo_r = f_top ? 0 : -2, hi_r = f_bottom ? h - 1 : h + 1;
-  const int lo_c = f_left ? 0 : -2, hi_c = f_right ? w - 1 : w + 1;
-  if (r0 - 2 < lo_r || r0 + RH - 3 > hi_r || q0 - 2 < lo_c ||
-      q0 + RW - 3 > hi_c) {
-    for (int s = t; s < C2 * M; s += NT) {
-      const int c = s / M, a = (s % M) / RW, b = s % RW;
-      // source = the clamped position; it is never itself rewritten
-      const int sa = min(max(r0 + a - 2, lo_r), hi_r) - r0 + 2;
-      const int sb = min(max(q0 + b - 2, lo_c), hi_c) - q0 + 2;
-      if (sa != a || sb != b) c2s[c * C2S + a * RW + b] = c2s[c * C2S + sa * RW + sb];
-    }
-    __syncthreads();
-  }
+  ring_clamp<RH, RW, NT>(c2s, C2S, r0, q0, h, w, f_top, f_bottom, f_left,
+                         f_right);
 
   // ---- conv3: a 1 x 4 output strip per thread ----
   constexpr int NS = TW / 4;              // strips per tile row
   for (int s = t; s < TH * NS; s += NT) {
     const int ty = s / NS, tx0 = (s % NS) * 4;
     float o[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
+#pragma unroll 8
     for (int c = 0; c < C2; ++c) {
 #pragma unroll
       for (int dy = 0; dy < 5; ++dy) {
@@ -216,7 +216,7 @@ fused_srcnn_kernel(const float* __restrict__ y,
         const float x[8] = {u.x, u.y, u.z, u.w, v.x, v.y, v.z, v.w};
 #pragma unroll
         for (int dx = 0; dx < 5; ++dx) {
-          const float wt = c_params[OFF_W3 + (dy * 5 + dx) * C2 + c];
+          const float wt = w3s[(dy * 5 + dx) * C2 + c];
 #pragma unroll
           for (int j = 0; j < 4; ++j) o[j] = fmaf(x[j + dx], wt, o[j]);
         }
@@ -228,7 +228,7 @@ fused_srcnn_kernel(const float* __restrict__ y,
       const int ocol = q0 + tx0 + j;
       if (orow < h && ocol < w)
         out[(long long)orow * w + ocol] =
-            fminf(fmaxf(o[j] + c_params[OFF_B3], 0.f), 255.f);
+            fminf(fmaxf(o[j] + b3s[0], 0.f), 255.f);
     }
   }
 }
@@ -241,23 +241,19 @@ int srcnn_fused_n_params() { return N_PARAMS; }
 
 int srcnn_fused_max_rows() { return 65535 * TH; }
 
-// y: [h+12, w+12] f32, out: [h, w] f32, both contiguous; params: N_PARAMS
-// f32 in the packed layout; all on the current device.
-// Copies params to constant memory and launches on `stream`; returns the
-// cudaError_t of the copy or the launch (0 on success).
+// y: [n, h+12, w+12] f32, out: [n, h, w] f32, both contiguous; params:
+// N_PARAMS f32 in the packed layout; all on the current device.  Launches
+// on `stream`; returns the cudaError_t of the set-up or the launch (0 on
+// success).  n <= 65535.
 int srcnn_fused_forward(const float* y, float* out, const float* params,
-                        int h, int w, int f_top, int f_bottom,
+                        int n, int h, int w, int f_top, int f_bottom,
                         int f_left, int f_right, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e = cudaMemcpyToSymbolAsync(c_params, params,
-                                          N_PARAMS * sizeof(float), 0,
-                                          cudaMemcpyDeviceToDevice, s);
+  cudaError_t e = cudaFuncSetAttribute(
+      fused_srcnn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)SMEM_BYTES);
   if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(fused_srcnn_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)SMEM_BYTES);
-  if (e != cudaSuccess) return e;
-  dim3 grid((w + TW - 1) / TW, (h + TH - 1) / TH);
+  dim3 grid((w + TW - 1) / TW, (h + TH - 1) / TH, n);
   fused_srcnn_kernel<<<grid, NT, SMEM_BYTES, s>>>(
       y, params, out, h, w, f_top, f_bottom, f_left, f_right);
   return cudaGetLastError();

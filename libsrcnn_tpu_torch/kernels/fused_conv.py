@@ -1,23 +1,37 @@
-"""Fully-fused SRCNN 9-1-5 forward: the hand-written CUDA kernel
-(``csrc/fused_srcnn.cu``) and its plain PyTorch version.
+"""Fully-fused SRCNN 9-1-5 forward: the hand-written CUDA kernels and their
+plain PyTorch versions.
 
-Port of the exact tier of ``libsrcnn_tpu/kernels/fused_conv.py`` (``_kernel``
-at ``precision=HIGHEST``, reached through ``_fused`` / ``forward_y``).  The
-TPU kernel's tile geometry (TW=124 columns, 384-lane windows, the im2col
-scratch, lane rolls) follows Mosaic's layout rules and is not carried over;
-the CUDA kernel keeps what it computes and what it keeps out of device
-memory (see the note at the top of the ``.cu`` file).
+Port of ``libsrcnn_tpu/kernels/fused_conv.py`` (``_kernel``, reached through
+``_fused`` / ``forward_y``) in its GEMM modes, the JAX package's
+``MODE_PRECISIONS`` names:
+
+========  ==========================  ===================================
+kernel    mode                        source
+========  ==========================  ===================================
+K1        ``precision="exact"``       ``csrc/fused_srcnn.cu`` (f32 FMA)
+K2        ``"split"``                 ``csrc/fused_srcnn_bf16.cu``
+K3h       ``"split"``, ``pack_im2col=True``   the same, hi/lo-packed conv1
+K3        ``"bf16x1"``                the same
+K3n       ``"bf16x1"``, ``geom="narrow"``     the same, narrower tile
+========  ==========================  ===================================
+
+The TPU kernel's tile geometry (TW=124 columns, 384-lane windows, the
+im2col scratch, lane rolls, the i32 tap-pair words) follows Mosaic's layout
+rules and is not carried over; the CUDA kernels keep what it computes and
+what it keeps out of device memory (see the notes at the top of the
+``.cu`` files).
 
 Interface, for the pipeline and for banded / sharded callers alike:
 
-* ``y_padded`` is the Y plane with a 6 px halo, ``[h+12, w+12]`` f32.  The
+* ``y_padded`` is the Y plane with a 6 px halo, ``[h+12, w+12]`` f32, or a
+  batch of them ``[N, h+12, w+12]`` (one launch for the batch).  The
   pipeline has the resize emit it directly (``resize_plane_padded``).
 * ``edge_flags`` ``(top, bottom, left, right)`` say which borders are true
   image edges.  There conv3 reads conv2's output clamped to the image
   (`libsrcnn.cpp:463-489`); at a 0 flag it reads the c2 computed over the
   real halo pixels.  ``None`` means all four are edges.
 
-A CUDA tensor always goes to the kernel; a CPU tensor goes to the plain
+A CUDA tensor always goes to a kernel; a CPU tensor goes to the plain
 version, :func:`forward_y_reference`.  Nothing falls back from one to the
 other.
 """
@@ -33,14 +47,32 @@ from ..models import srcnn
 
 HALO = 6          # 4 (conv1) + 2 (conv3) each side
 
-#: kernel launches made by :func:`forward_y` in this process
+PRECISIONS = srcnn.PRECISIONS
+GEOMS = ("wide", "narrow")
+
+#: what ``pack_im2col=None`` means for the split mode: the plain two-pass
+#: conv1 (K2), as ``PACK_IM2COL_SPLIT_DEFAULT`` is off in the JAX package;
+#: set True to route the split mode to K3h
+PACK_IM2COL_SPLIT_DEFAULT = False
+#: what ``geom=None`` means for the bf16x1 mode: the wide tile (K3), as
+#: ``NARROW_EW_DEFAULT`` is off in the JAX package; set True for K3n
+NARROW_DEFAULT = False
+
+#: kernel launches made by :func:`launch` (and so :func:`forward_y`) in this
+#: process
 launches = 0
+#: the same, by kernel
+launches_by = {"K1": 0, "K2": 0, "K3": 0, "K3h": 0, "K3n": 0}
+
+#: kernel -> index the bf16 library's entry point takes
+_BF16_KERNELS = {"K2": 0, "K3": 1, "K3h": 2, "K3n": 3}
 
 
 def pack_params(params: dict) -> torch.Tensor:
-    """OIHW params -> the kernel's flat f32 layout (``fused_srcnn.cu``):
+    """OIHW params -> the kernels' flat f32 layout (``csrc/srcnn_common.cuh``):
     w1 [81,64] (tap k = 9*dy + dx), b1 [64], w2 [64,32], b2 [32],
-    w3 [25,32] (tap k = 5*dy + dx), b3 [1]; 8,129 floats."""
+    w3 [25,32] (tap k = 5*dy + dx), b3 [1]; 8,129 floats.  The bf16
+    kernels round the weights themselves."""
     parts = [
         params["w1"].reshape(64, 81).t(),
         params["b1"],
@@ -50,6 +82,36 @@ def pack_params(params: dict) -> torch.Tensor:
         params["b3"],
     ]
     return torch.cat([p.reshape(-1).to(torch.float32) for p in parts])
+
+
+def kernel_for(precision: str = "exact", pack_im2col: bool | None = None,
+               geom: str | None = None) -> str:
+    """The kernel ("K1", "K2", "K3", "K3h" or "K3n") that a mode runs.
+
+    ``pack_im2col`` packs bf16 taps, so it is refused for the exact mode
+    (`fused_conv.py:719-721` of the JAX package).  For ``"bf16x1"`` the
+    pair pack is a Mosaic store workaround: it is accepted and changes
+    nothing.  The narrow tile exists for ``"bf16x1"`` only."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
+    if geom is not None and geom not in GEOMS:
+        raise ValueError(f"geom must be one of {GEOMS}, got {geom!r}")
+    if precision == "exact":
+        if pack_im2col:
+            raise ValueError("pack_im2col packs bf16 taps; the exact tier "
+                             "needs the f32 scratch")
+        if geom == "narrow":
+            raise ValueError("the narrow geometry is the bf16x1 kernel K3n")
+        return "K1"
+    if precision == "split":
+        if geom == "narrow":
+            raise ValueError("the narrow geometry is the bf16x1 kernel K3n")
+        if pack_im2col is None:
+            pack_im2col = PACK_IM2COL_SPLIT_DEFAULT
+        return "K3h" if pack_im2col else "K2"
+    if geom is None:
+        geom = "narrow" if NARROW_DEFAULT else "wide"
+    return "K3n" if geom == "narrow" else "K3"
 
 
 def _flags(edge_flags) -> tuple[int, int, int, int]:
@@ -66,10 +128,14 @@ def _check_plane(y_padded: torch.Tensor, h: int, w: int) -> None:
         raise ValueError(f"output size must be positive, got {h}x{w}")
     if y_padded.dtype != torch.float32:
         raise TypeError(f"y_padded must be float32, got {y_padded.dtype}")
-    if tuple(y_padded.shape) != (h + 2 * HALO, w + 2 * HALO):
-        raise ValueError(f"y_padded must be [h+12, w+12] = "
-                         f"[{h + 2 * HALO}, {w + 2 * HALO}], got "
-                         f"{list(y_padded.shape)}")
+    if (y_padded.dim() not in (2, 3) or tuple(y_padded.shape[-2:]) !=
+            (h + 2 * HALO, w + 2 * HALO)):
+        raise ValueError(f"y_padded must be [h+12, w+12] or [N, h+12, w+12] "
+                         f"with h+12, w+12 = {h + 2 * HALO}, {w + 2 * HALO}; "
+                         f"got {list(y_padded.shape)}")
+    if y_padded.dim() == 3 and not 1 <= y_padded.shape[0] <= 65535:
+        raise ValueError(f"batch of {y_padded.shape[0]} planes: the kernels "
+                         f"take 1 to 65535")
 
 
 def _ring_index(n: int, lo_edge: int, hi_edge: int, device) -> torch.Tensor:
@@ -80,70 +146,137 @@ def _ring_index(n: int, lo_edge: int, hi_edge: int, device) -> torch.Tensor:
 
 
 def forward_y_reference(params: dict, y_padded: torch.Tensor, h: int, w: int,
-                        edge_flags=None) -> torch.Tensor:
-    """Plain PyTorch version of :func:`forward_y` (same signature): the
-    ``models/srcnn`` convs on the halo plane, with the ring clamp as an
-    index gather.  With all flags set and a replicate halo it equals
+                        edge_flags=None, *, precision: str = "exact",
+                        pack_im2col: bool | None = None) -> torch.Tensor:
+    """Plain PyTorch version of :func:`forward_y` (same signature; the
+    geometry changes nothing the kernels compute, so it has none): the
+    ``models/srcnn`` convs in ``precision`` on the halo plane, with the
+    ring clamp as an index gather.  K3h's plain version is K2's.  With all
+    flags set, a replicate halo and ``precision="exact"`` it equals
     ``srcnn.forward_y`` on the inner plane."""
     _check_plane(y_padded, h, w)
+    kernel_for(precision, pack_im2col)           # the same argument checks
     top, bottom, left, right = _flags(edge_flags)
     dev = y_padded.device
+    squeeze = y_padded.dim() == 2
+    x = (y_padded[None] if squeeze else y_padded)[:, None]
     with srcnn.exact_f32(dev):
-        c2 = srcnn.conv12(params, y_padded[None, None])   # [1,32,h+4,w+4]
+        c2 = srcnn.conv12(params, x, precision)             # [N,32,h+4,w+4]
         c2 = c2.index_select(2, _ring_index(h, top, bottom, dev))
         c2 = c2.index_select(3, _ring_index(w, left, right, dev))
-        return srcnn.conv3(params, c2)[0]
+        out = srcnn.conv3(params, c2, precision)
+    return out[0] if squeeze else out
 
 
-@functools.lru_cache(maxsize=1)
-def _lib() -> ctypes.CDLL:
-    """The built kernel library, with its C signatures declared."""
-    from . import _build
-
-    lib = _build.load("fused_srcnn")
-    lib.srcnn_fused_n_params.restype = ctypes.c_int
-    lib.srcnn_fused_n_params.argtypes = []
-    lib.srcnn_fused_max_rows.restype = ctypes.c_int
-    lib.srcnn_fused_max_rows.argtypes = []
-    lib.srcnn_fused_forward.restype = ctypes.c_int
-    lib.srcnn_fused_forward.argtypes = (
-        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+def _declare(lib: ctypes.CDLL, prefix: str, n_int_args: int) -> ctypes.CDLL:
+    for fn in ("n_params", "max_rows"):
+        f = getattr(lib, f"{prefix}_{fn}")
+        f.restype = ctypes.c_int
+        f.argtypes = []
+    f = getattr(lib, f"{prefix}_forward")
+    f.restype = ctypes.c_int
+    f.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * n_int_args +
+                  [ctypes.c_void_p])
     return lib
 
 
-def forward_y(params: dict, y_padded: torch.Tensor, h: int, w: int,
-              edge_flags=None) -> torch.Tensor:
-    """Fused conv stack on a halo plane ``[h+12, w+12]`` f32 -> ``[h, w]``.
+@functools.lru_cache(maxsize=None)
+def _lib(name: str = "fused_srcnn") -> ctypes.CDLL:
+    """A built kernel library (``fused_srcnn``: K1; ``fused_srcnn_bf16``:
+    K2, K3, K3h, K3n), with its C signatures declared."""
+    from . import _build
 
-    On a CUDA tensor this launches the CUDA kernel (built at first use) on
-    the current stream and adds one to :data:`launches`; on a CPU tensor it
-    runs :func:`forward_y_reference`.  Any other device raises."""
-    global launches
+    if name == "fused_srcnn":
+        return _declare(_build.load(name), "srcnn_fused", 7)
+    if name == "fused_srcnn_bf16":
+        return _declare(_build.load(name), "srcnn_bf16", 8)
+    raise ValueError(f"no kernel library {name!r}")
+
+
+def build_all() -> None:
+    """Build every kernel library of this module (one nvcc each, all at
+    once) and load them."""
+    from . import _build
+
+    _build.build("fused_srcnn", "fused_srcnn_bf16")
+    _lib("fused_srcnn")
+    _lib("fused_srcnn_bf16")
+
+
+def forward_y(params: dict, y_padded: torch.Tensor, h: int, w: int,
+              edge_flags=None, *, precision: str = "exact",
+              pack_im2col: bool | None = None,
+              geom: str | None = None) -> torch.Tensor:
+    """Fused conv stack on halo planes ``[h+12, w+12]`` or ``[N, h+12,
+    w+12]`` f32 -> ``[h, w]`` or ``[N, h, w]``.
+
+    ``precision`` is ``"exact"`` (K1), ``"split"`` (K2; K3h with
+    ``pack_im2col=True``) or ``"bf16x1"`` (K3; K3n with ``geom="narrow"``),
+    see :func:`kernel_for`.  On a CUDA tensor this launches the kernel
+    (built at first use) once for the whole batch on the current stream
+    and adds one to :data:`launches` and to :data:`launches_by`; on a CPU
+    tensor it runs :func:`forward_y_reference`.  Any other device raises."""
     _check_plane(y_padded, h, w)
+    kernel = kernel_for(precision, pack_im2col, geom)
     flags = _flags(edge_flags)
     dev = y_padded.device
     if dev.type == "cpu":
-        return forward_y_reference(params, y_padded, h, w, flags)
+        return forward_y_reference(params, y_padded, h, w, flags,
+                                   precision=precision, pack_im2col=pack_im2col)
     if dev.type != "cuda":
         raise ValueError(f"fused_conv.forward_y takes CPU or CUDA tensors, "
                          f"got {dev}")
     if not y_padded.is_contiguous():
         raise ValueError("y_padded must be contiguous")
-    packed = pack_params(params).to(dev).contiguous()
-    lib = _lib()
-    if packed.numel() != lib.srcnn_fused_n_params():
-        raise ValueError(f"packed params hold {packed.numel()} floats, the "
-                         f"kernel takes {lib.srcnn_fused_n_params()}")
-    if h > lib.srcnn_fused_max_rows():
-        raise ValueError(f"h={h} exceeds the kernel's grid limit of "
-                         f"{lib.srcnn_fused_max_rows()} rows")
-    out = torch.empty((h, w), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        err = lib.srcnn_fused_forward(
-            y_padded.data_ptr(), out.data_ptr(), packed.data_ptr(), h, w,
-            *flags,
-            torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"fused_srcnn launch failed: cudaError {err}")
-    launches += 1
+    out = torch.empty(y_padded.shape[:-2] + (h, w), dtype=torch.float32,
+                      device=dev)
+    launch(kernel, pack_params(params).to(dev).contiguous(), y_padded, out,
+           flags)
     return out
+
+
+def launch(kernel: str, packed: torch.Tensor, y_padded: torch.Tensor,
+           out: torch.Tensor, flags=(1, 1, 1, 1)) -> None:
+    """Launch ``kernel`` on CUDA tensors: ``packed`` from
+    :func:`pack_params`, ``y_padded`` [N, h+12, w+12] or [h+12, w+12] f32,
+    ``out`` [N, h, w] or [h, w] f32, all contiguous on one device, on its
+    current stream.  Adds one to :data:`launches` and :data:`launches_by`.
+    :func:`forward_y` checks its arguments and calls this; a caller that
+    keeps the packed weights of one parameter set may call it directly."""
+    global launches
+    h, w = out.shape[-2:]
+    for name, t in (("packed", packed), ("y_padded", y_padded), ("out", out)):
+        if (t.device != y_padded.device or t.dtype != torch.float32
+                or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous f32 tensor on "
+                             f"{y_padded.device}")
+    if y_padded.device.type != "cuda":
+        raise ValueError(f"launch takes CUDA tensors, got {y_padded.device}")
+    if y_padded.shape[:-2] != out.shape[:-2]:
+        raise ValueError(f"y_padded {list(y_padded.shape)} and out "
+                         f"{list(out.shape)} hold different batches")
+    _check_plane(y_padded, h, w)
+    flags = _flags(flags)
+    if kernel == "K1":
+        lib, prefix, extra = _lib("fused_srcnn"), "srcnn_fused", ()
+    else:
+        lib, prefix, extra = (_lib("fused_srcnn_bf16"), "srcnn_bf16",
+                              (_BF16_KERNELS[kernel],))
+    n_params = getattr(lib, f"{prefix}_n_params")()
+    if packed.numel() != n_params:
+        raise ValueError(f"packed params hold {packed.numel()} floats, the "
+                         f"kernel takes {n_params}")
+    max_rows = getattr(lib, f"{prefix}_max_rows")()
+    if h > max_rows:
+        raise ValueError(f"h={h} exceeds the kernel's grid limit of "
+                         f"{max_rows} rows")
+    n = 1 if y_padded.dim() == 2 else y_padded.shape[0]
+    dev = y_padded.device
+    with torch.cuda.device(dev):
+        err = getattr(lib, f"{prefix}_forward")(
+            y_padded.data_ptr(), out.data_ptr(), packed.data_ptr(), n, h, w,
+            *flags, *extra, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{kernel} launch failed: cudaError {err}")
+    launches += 1
+    launches_by[kernel] += 1

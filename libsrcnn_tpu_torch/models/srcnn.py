@@ -9,10 +9,20 @@ Behavioral contract (golden path, SURVEY.md section 3.1):
   [0, 255] (`libsrcnn.cpp:449-529`).
 
 This module holds the plain PyTorch version (``F.conv2d``): the CPU path,
-and the reference the hand-written kernel in :mod:`..kernels.fused_conv` is
-held against.  On CUDA it runs with TF32 off in cuDNN and cuBLAS: cuDNN's
-default TF32 convolutions keep ~3 decimal digits, enough to break the
-reference's <=1 u8 LSB gate.
+and the reference the hand-written kernels in :mod:`..kernels.fused_conv`
+are held against.  On CUDA it runs with TF32 off in cuDNN and cuBLAS:
+cuDNN's default TF32 convolutions keep ~3 decimal digits, enough to break
+the reference's <=1 u8 LSB gate.
+
+The bf16 forms emulate bf16 operands: each operand is rounded to bf16
+(round to nearest even) and back to f32, and the conv runs in f32.  A
+product of two bf16 values is exact in f32, so only the summation order
+differs from a bf16 GEMM with f32 accumulation.  ``F.conv2d`` is never run
+on bf16 tensors: cuDNN and oneDNN round its output to bf16 before the bias
+and the ReLU, which the JAX package never does.  Parameters stay f32;
+rounding them inside the forward is idempotent on weights that are
+already bf16 (the JAX package's bf16 tiers store them so,
+``libsrcnn_tpu/models/srcnn.py:42-54``).
 
 Weights come from ``libsrcnn_tpu/models/weights/srcnn_915.npz``, read by
 path so that jax is never imported.  Tensors here are OIHW (PyTorch's
@@ -104,24 +114,75 @@ def exact_f32(device: torch.device):
     return stack
 
 
-def conv12(params: dict, x: torch.Tensor) -> torch.Tensor:
+#: GEMM precisions of the fused kernel's modes (the JAX package's
+#: ``fused_conv.MODE_PRECISIONS`` names): exact f32, split-bf16x2, bf16x1
+PRECISIONS = ("exact", "split", "bf16x1")
+
+#: srcnn compute tier -> precision of the plain convs (the XLA twin of the
+#: JAX package, ``libsrcnn_tpu/models/srcnn.py:88-118`` with bf16-stored
+#: weights: input, h1 and h2 rounded to bf16, f32 accumulation and biases;
+#: both bf16 tiers compute this there)
+TIER_PRECISION = {"float32": "exact", "bfloat16": "bf16x1",
+                  "bfloat16_fast": "bf16x1"}
+
+
+def round_bf16(t: torch.Tensor) -> torch.Tensor:
+    """Round f32 to the nearest bf16 (ties to even), kept as f32."""
+    return t.to(torch.bfloat16).to(torch.float32)
+
+
+def conv(x: torch.Tensor, w: torch.Tensor, precision: str = "exact") -> torch.Tensor:
+    """Valid conv, no bias, in one of :data:`PRECISIONS`.  ``split`` sums
+    two convs of ``hi = bf16(x)`` and ``lo = bf16(x - hi)`` against
+    ``bf16(w)`` (``fused_conv._dot``, `:121-152`); ``bf16x1`` is one conv
+    of ``bf16(x)`` against ``bf16(w)``."""
+    if precision == "exact":
+        return F.conv2d(x, w)
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
+    wb = round_bf16(w)
+    hi = round_bf16(x)
+    out = F.conv2d(hi, wb)
+    if precision == "split":
+        out = out + F.conv2d(round_bf16(x - hi), wb)
+    return out
+
+
+def _bias(b: torch.Tensor) -> torch.Tensor:
+    return b.reshape(1, -1, 1, 1)
+
+
+def conv12(params: dict, x: torch.Tensor, precision: str = "exact") -> torch.Tensor:
     """conv1 (9x9, valid) + ReLU, conv2 (1x1) + ReLU on [N,1,H,W] -> c2
     [N,32,H-8,W-8]."""
-    h1 = torch.relu(F.conv2d(x, params["w1"], params["b1"]))
-    return torch.relu(F.conv2d(h1, params["w2"], params["b2"]))
+    if precision == "exact":
+        h1 = torch.relu(F.conv2d(x, params["w1"], params["b1"]))
+        return torch.relu(F.conv2d(h1, params["w2"], params["b2"]))
+    h1 = torch.relu(conv(x, params["w1"], precision) + _bias(params["b1"]))
+    return torch.relu(conv(h1, params["w2"], precision) + _bias(params["b2"]))
 
 
-def conv3(params: dict, c2: torch.Tensor) -> torch.Tensor:
+def conv3(params: dict, c2: torch.Tensor, precision: str = "exact") -> torch.Tensor:
     """conv3 (5x5, valid) + clamp to [0, 255]: [N,32,H,W] -> [N,H-4,W-4]."""
-    h3 = F.conv2d(c2, params["w3"], params["b3"])
+    if precision == "exact":
+        h3 = F.conv2d(c2, params["w3"], params["b3"])
+    else:
+        h3 = conv(c2, params["w3"], precision) + _bias(params["b3"])
     return torch.clamp(h3[:, 0], 0.0, 255.0)
 
 
-def forward_y(params: dict, y: torch.Tensor) -> torch.Tensor:
-    """Run the 9-1-5 stack on [H, W] or [N, H, W] Y planes in [0, 255]."""
+def forward_y(params: dict, y: torch.Tensor, tier: str = "float32") -> torch.Tensor:
+    """Run the 9-1-5 stack on [H, W] or [N, H, W] Y planes in [0, 255].
+
+    ``tier`` is the srcnn compute tier: ``"float32"`` is exact f32; the two
+    bf16 tiers run the JAX package's XLA twin (see :data:`TIER_PRECISION`),
+    which is not the split math kernel K2 computes on the card."""
+    if tier not in TIER_PRECISION:
+        raise ValueError(f"tier must be one of {tuple(TIER_PRECISION)}, got {tier!r}")
+    precision = TIER_PRECISION[tier]
     squeeze = y.dim() == 2
     x = (y[None] if squeeze else y)[:, None].to(torch.float32)
     with exact_f32(x.device):
-        c2 = conv12(params, F.pad(x, (4, 4, 4, 4), mode="replicate"))
-        out = conv3(params, F.pad(c2, (2, 2, 2, 2), mode="replicate"))
+        c2 = conv12(params, F.pad(x, (4, 4, 4, 4), mode="replicate"), precision)
+        out = conv3(params, F.pad(c2, (2, 2, 2, 2), mode="replicate"), precision)
     return out[0] if squeeze else out

@@ -15,7 +15,9 @@ same-size half-buffer copy bug, `frawscale.cpp:185-193`, is deliberately
 not reproduced).
 
 The index and weight tensors of one (filter, dst, src, pad, out, device)
-are built once and cached; they are a few KB per axis.
+are built once and cached; they are a few KB per axis.  Planes may carry
+leading batch dimensions (``[..., H, W]``): every op is elementwise along
+them, so a batch resizes bit for bit like its planes one at a time.
 """
 
 from __future__ import annotations
@@ -65,39 +67,41 @@ def _identity_index(src: int, pad_lo: int, out: int, device: torch.device):
 
 def _resize_axis(plane: torch.Tensor, dst: int, filter_type: FilterType,
                  axis: int, pad_lo: int = 0, out: int | None = None) -> torch.Tensor:
-    """Resize one axis of a [H, W] plane to ``dst`` entries, emitted with
-    ``pad_lo`` replicate entries before them and replicate padding up to
-    ``out`` entries in all (``out=None``: no padding)."""
-    src = plane.shape[axis]
+    """Resize one axis (0: rows, 1: columns) of [..., H, W] planes to
+    ``dst`` entries, emitted with ``pad_lo`` replicate entries before them
+    and replicate padding up to ``out`` entries in all (``out=None``: no
+    padding)."""
+    dim = axis - 2
+    src = plane.shape[dim]
     if out is None:
         if dst == src:
             return plane
         out = dst
     if dst == src:
         # same-size axis: identity gather with clamped indices
-        return plane.index_select(axis, _identity_index(src, pad_lo, out,
-                                                        plane.device))
+        return plane.index_select(dim, _identity_index(src, pad_lo, out,
+                                                       plane.device))
     acc = None
     for idx, wk in _band_tensors(FilterType(filter_type), dst, src, pad_lo,
                                  out, plane.device):
         wk = wk[:, None] if axis == 0 else wk[None, :]
-        term = plane.index_select(axis, idx) * wk
+        term = plane.index_select(dim, idx) * wk
         acc = term if acc is None else acc + term
     if acc is None:  # degenerate: all-zero table (cannot happen in practice)
         shape = list(plane.shape)
-        shape[axis] = out
+        shape[dim] = out
         acc = plane.new_zeros(shape)
     return acc
 
 
 def resize_plane(plane: torch.Tensor, dst_h: int, dst_w: int,
                  filter_type: FilterType) -> torch.Tensor:
-    """Resize a single [H, W] float plane to [dst_h, dst_w].
+    """Resize [..., H, W] float planes to [..., dst_h, dst_w].
 
     Mirrors the pass ordering of `FRAWResizeEngine::scale`
     (`frawscale.cpp:195-278`).
     """
-    src_h, src_w = plane.shape
+    src_h, src_w = plane.shape[-2:]
     if dst_h == src_h and dst_w == src_w:
         return plane
     if dst_w <= src_w:
@@ -117,7 +121,7 @@ def resize_plane_padded(plane: torch.Tensor, dst_h: int, dst_w: int,
     the fused kernel its 6 px halo plane straight out of the resize
     gather, with no separate padding pass.  Same pass ordering as
     :func:`resize_plane`."""
-    src_h, src_w = plane.shape
+    src_h, src_w = plane.shape[-2:]
     if dst_w <= src_w:
         out = _resize_axis(plane, dst_w, filter_type, 1, pad, out_w)
         return _resize_axis(out, dst_h, filter_type, 0, pad, out_h)

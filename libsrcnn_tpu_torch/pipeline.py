@@ -1,5 +1,5 @@
 """End-to-end single-pass SRCNN upscale pipeline (the `doSRCNN` equivalent),
-PyTorch port of the srcnn / float32 branch of ``libsrcnn_tpu/pipeline.py``.
+PyTorch port of the srcnn branch of ``libsrcnn_tpu/pipeline.py``.
 
 One pass: u8 image on the device -> planar f32 YCbCr -> band resample ->
 SRCNN 9-1-5 on Y -> u8 out.  PyTorch runs eagerly, so there is no compiled
@@ -8,8 +8,19 @@ tables, as device index / weight tensors) is built once and cached in
 :mod:`.ops.resize`.
 
 On the kernel path the Y resize emits the conv stack's 6 px halo plane
-directly (``resize_plane_padded``) and the fused CUDA kernel consumes it;
-otherwise the Y plane goes through the plain ``models/srcnn`` convs.
+directly (``resize_plane_padded``) and a fused CUDA kernel consumes it: K1
+for the exact ``float32`` tier, K2 (split-bf16x2) for ``bfloat16``, K3
+(bf16x1) for ``bfloat16_fast`` (`libsrcnn_tpu/pipeline.py:181-209`).
+Otherwise -- ``use_kernel=False``, or a CPU tensor -- the Y plane goes
+through the plain ``models/srcnn`` convs, which for both bf16 tiers run the
+JAX package's XLA twin (bf16-rounded input, h1 and h2; f32 accumulation),
+as the JAX package does off the TPU.  So on the CPU the ``bfloat16`` tier
+matches the JAX package's CPU output, not the split math K2 computes on
+the card.
+
+A pass takes one frame ``[H, W, D]`` or a clip ``[N, H, W, D]``: the
+batch dimension rides through color and resize, and the clip's Y planes go
+to the kernel in one launch.
 """
 
 from __future__ import annotations
@@ -26,8 +37,11 @@ SRCNN_TIERS = ("float32", "bfloat16", "bfloat16_fast", "int8")
 
 #: tiers and models of the JAX package the port does not run yet, with the
 #: ROADMAP item that ports each
-UNPORTED_TIERS = {"bfloat16": "M6 (kernel K2)", "bfloat16_fast": "M6 (kernel K3)",
-                  "int8": "M10 (kernel K4)"}
+UNPORTED_TIERS = {"int8": "M10 (kernel K4)"}
+
+#: srcnn tier -> GEMM mode of the fused kernel (`libsrcnn_tpu/pipeline.py:191-193`)
+KERNEL_PRECISION = {"float32": "exact", "bfloat16": "split",
+                    "bfloat16_fast": "bf16x1"}
 UNPORTED_MODELS = ("fsrcnn", "espcn", "vdsr", "srcnn955")
 
 
@@ -54,10 +68,7 @@ def check_supported(cfg: SRCNNConfig) -> None:
         raise NotImplementedError(
             f"compute_dtype={cfg.compute_dtype!r} is not ported yet "
             f"(ROADMAP {UNPORTED_TIERS[cfg.compute_dtype]}); the port runs "
-            f"the exact 'float32' tier")
-    if cfg.self_ensemble:
-        raise NotImplementedError(
-            "self_ensemble=True is not ported yet (ROADMAP M7)")
+            f"the tiers {tuple(KERNEL_PRECISION)}")
 
 
 def resolve_kernel(use_kernel: bool | None, device: torch.device) -> bool:
@@ -72,15 +83,16 @@ def resolve_kernel(use_kernel: bool | None, device: torch.device) -> bool:
 
 
 def _single_pass(img_u8: torch.Tensor, params: dict, *, dst_h: int, dst_w: int,
-                 filter_type: FilterType, use_kernel: bool):
-    """[H,W,D] u8 -> ([dst_h,dst_w,D] u8, [dst_h,dst_w] u8), on the image's
-    device.
+                 filter_type: FilterType, use_kernel: bool,
+                 compute_dtype: str = "float32"):
+    """[..., H,W,D] u8 -> ([..., dst_h,dst_w,D] u8, [..., dst_h,dst_w] u8),
+    on the image's device; ``...`` is empty or one batch dimension.
 
     Mirrors `doSRCNN` (`libsrcnn.cpp:628-923`): the second output is the
     truncated-u8 conv3 map (`:889-915`).
     """
     d = img_u8.shape[-1]
-    planes = color.rgb_to_ycbcr(img_u8)  # [D,H,W] f32
+    planes = color.rgb_to_ycbcr(img_u8)  # [D,...,H,W] f32
 
     y_filter = FilterType(filter_type)
     c_filter = chroma_filter(y_filter)
@@ -92,10 +104,15 @@ def _single_pass(img_u8: torch.Tensor, params: dict, *, dst_h: int, dst_w: int,
         y_r = resize.resize_plane_padded(planes[0], dst_h, dst_w, y_filter,
                                          halo, dst_h + 2 * halo,
                                          dst_w + 2 * halo)
-        y_sr = fused_conv.forward_y(params, y_r, dst_h, dst_w)
+        y_sr = fused_conv.forward_y(params, y_r, dst_h, dst_w,
+                                    precision=KERNEL_PRECISION[compute_dtype])
     else:
         y_r = resize.resize_plane(planes[0], dst_h, dst_w, y_filter)
-        y_sr = srcnn.forward_y(params, y_r)
+        # the plain convs run one plane at a time, so that a clip equals
+        # its frames bit for bit whatever algorithm a batch would pick
+        y_sr = (torch.stack([srcnn.forward_y(params, p, compute_dtype)
+                             for p in y_r]) if y_r.dim() == 3
+                else srcnn.forward_y(params, y_r, compute_dtype))
 
     out_u8 = color.ycbcr_to_rgb(torch.stack([y_sr, *rest], dim=0))
     # conv3 output is already clamped to [0,255]; truncating u8 cast
@@ -106,14 +123,19 @@ def _single_pass(img_u8: torch.Tensor, params: dict, *, dst_h: int, dst_w: int,
 
 def run_pass(img_u8: torch.Tensor, params: dict, multiply: float,
              cfg: SRCNNConfig):
-    """One resize+model pass of a [H,W,D] u8 tensor; returns (out_u8,
-    conv_u8) tensors on the image's device."""
+    """One resize+model pass of a [H,W,D] u8 frame, or of a [N,H,W,D] clip
+    in one batched pass (one kernel launch for its Y planes); returns
+    (out_u8, conv_u8) tensors on the image's device.  ``cfg.self_ensemble``
+    is the caller's business (``api`` / ``serve``)."""
     check_supported(cfg)
-    h, w, _ = img_u8.shape
+    if img_u8.dim() not in (3, 4):
+        raise ValueError(f"expected [H,W,D] or [N,H,W,D], got {list(img_u8.shape)}")
+    h, w, _ = img_u8.shape[-3:]
     dst_w, dst_h = resize.scaled_size(w, h, multiply)
     if dst_w <= 0 or dst_h <= 0:
         raise ValueError(f"bad scale {multiply} for {w}x{h}")
     return _single_pass(img_u8, params, dst_h=dst_h, dst_w=dst_w,
                         filter_type=cfg.filter,
                         use_kernel=resolve_kernel(cfg.use_kernel,
-                                                  img_u8.device))
+                                                  img_u8.device),
+                        compute_dtype=cfg.compute_dtype)

@@ -1,5 +1,6 @@
-"""The port on the card: the CUDA kernel against its plain version, and the
-kernel path against the plain path.
+"""The port on the card: the CUDA kernels against their plain versions,
+the kernel path against the plain path, batched and multi-stream launches,
+and the serving paths against ``upscale``.
 
 Every test here needs an NVIDIA GPU and skips without one; the CUDA kernel
 has no CPU mode.  This file imports no jax, so it also runs where jax is
@@ -22,6 +23,14 @@ pytestmark = pytest.mark.cuda
 
 GOLDENS = os.path.join(os.path.dirname(__file__), "goldens", "goldens.npz")
 ATOL = 2e-3  # f32 sums in another order than cuDNN's
+# the bf16 kernels vs their plain versions (tests/test_torch_kernel.py says
+# why): split forms atol 5e-3; bf16x1 p99.9 0.05 and max 2.0
+SPLIT_ATOL = 5e-3
+BF16X1_MAX, BF16X1_P999 = 2.0, 0.05
+BF16_MODES = {"K2": dict(precision="split"),
+              "K3": dict(precision="bf16x1"),
+              "K3h": dict(precision="split", pack_im2col=True),
+              "K3n": dict(precision="bf16x1", geom="narrow")}
 
 
 @pytest.fixture
@@ -89,3 +98,116 @@ def test_goldens_through_kernel(cuda, idx):
     d = np.abs(out.astype(int) - z[f"out_{key}"].astype(int))
     assert d.max() <= 1 and (d > 0).mean() < 0.02
     assert np.abs(conv.astype(int) - z[f"conv_{key}"].astype(int)).max() <= 1
+
+
+def _plain(kw):
+    return {k: v for k, v in kw.items() if k != "geom"}
+
+
+def _assert_close(kernel, got, ref):
+    d = (got - ref).abs()
+    if kernel in ("K3", "K3n"):
+        assert float(d.max()) <= BF16X1_MAX
+        assert float(torch.quantile(d.flatten()[:1_000_000], 0.999)) <= BF16X1_P999
+    else:
+        assert float(d.max()) <= SPLIT_ATOL
+
+
+@pytest.mark.parametrize("kernel", list(BF16_MODES))
+@pytest.mark.parametrize("shape,flags", [
+    ((3, 3), None), ((1, 70), None), ((70, 1), None), ((33, 47), None),
+    ((130, 250), None), ((130, 250), (0, 1, 0, 1)), ((67, 45), (1, 0, 1, 0)),
+    ((40, 40), (0, 0, 0, 0)),
+])
+def test_bf16_kernel_matches_plain_version(cuda, kernel, shape, flags):
+    h, w = shape
+    p = srcnn.load_params(cuda)
+    y = _plane(h + 12, w + 12, 20, cuda)
+    kw = BF16_MODES[kernel]
+    before = fused_conv.launches_by[kernel]
+    got = fused_conv.forward_y(p, y, h, w, flags, **kw)
+    torch.cuda.synchronize()
+    assert fused_conv.launches_by[kernel] == before + 1
+    ref = fused_conv.forward_y_reference(p, y, h, w, flags, **_plain(kw))
+    assert got.shape == (h, w)
+    _assert_close(kernel, got, ref)
+
+
+@pytest.mark.parametrize("shape,flags", [((130, 250), None), ((61, 181), (1, 0, 0, 1)),
+                                         ((300, 517), None)])
+def test_narrow_kernel_bit_identical_to_wide(cuda, shape, flags):
+    h, w = shape
+    p = srcnn.load_params(cuda)
+    y = _plane(h + 12, w + 12, 21, cuda)
+    wide = fused_conv.forward_y(p, y, h, w, flags, precision="bf16x1")
+    narrow = fused_conv.forward_y(p, y, h, w, flags, precision="bf16x1",
+                                  geom="narrow")
+    assert torch.equal(wide, narrow)
+
+
+@pytest.mark.parametrize("kernel", ["K1", *BF16_MODES])
+def test_batched_launch_equals_per_plane(cuda, kernel):
+    p = srcnn.load_params(cuda)
+    kw = BF16_MODES.get(kernel, {})
+    ys = torch.stack([_plane(75, 101, 22 + i, cuda) for i in range(3)])
+    before = fused_conv.launches
+    got = fused_conv.forward_y(p, ys, 63, 89, **kw)
+    assert fused_conv.launches == before + 1 and got.shape == (3, 63, 89)
+    for i in range(3):
+        assert torch.equal(got[i], fused_conv.forward_y(p, ys[i], 63, 89, **kw))
+
+
+@pytest.mark.parametrize("kernel", ["K1", *BF16_MODES])
+def test_two_streams_two_parameter_sets(cuda, kernel):
+    """Launches with different weights alternate on two streams; each
+    result equals its own plain version (no parameter state is shared
+    between launches)."""
+    kw = BF16_MODES.get(kernel, {})
+    pa = srcnn.load_params(cuda)
+    pb = {k: v * (0.9 if k.startswith("w") else 1.1) for k, v in pa.items()}
+    y = _plane(140, 260, 23, cuda)
+    sa, sb = torch.cuda.Stream(), torch.cuda.Stream()
+    torch.cuda.synchronize()
+    outs = []
+    for i in range(8):
+        s, p = (sa, pa) if i % 2 == 0 else (sb, pb)
+        with torch.cuda.stream(s):
+            outs.append(fused_conv.forward_y(p, y, 128, 248, **kw))
+    torch.cuda.synchronize()
+    for i, got in enumerate(outs):
+        p = pa if i % 2 == 0 else pb
+        ref = fused_conv.forward_y_reference(p, y, 128, 248, **_plain(kw))
+        if kernel == "K1":
+            assert float((got - ref).abs().max()) <= ATOL
+        else:
+            _assert_close(kernel, got, ref)
+
+
+@pytest.mark.parametrize("tier", ["float32", "bfloat16", "bfloat16_fast"])
+def test_upscale_frames_bit_identical_to_upscale(cuda, tier):
+    z = np.load(GOLDENS)
+    b = z["in_butterfly_full"]
+    clip = np.stack([b[:96, :128], b[96:192, :128], b[160:256, 128:]])
+    cfg = lt.SRCNNConfig(compute_dtype=tier)
+    before = fused_conv.launches
+    out = lt.upscale_frames(clip, 2.0, cfg, device=cuda)
+    assert fused_conv.launches == before + 1
+    for f, o in zip(clip, out):
+        np.testing.assert_array_equal(o, lt.upscale(f, 2.0, cfg, device=cuda))
+    ens = lt.SRCNNConfig(compute_dtype=tier, self_ensemble=True)
+    np.testing.assert_array_equal(lt.upscale_frames(clip[:1], 2.0, ens, device=cuda)[0],
+                                  lt.upscale(clip[0], 2.0, ens, device=cuda))
+    streamed = list(lt.VideoUpscaler(2.0, cfg, device=cuda).stream(clip))
+    for o, s in zip(out, streamed):
+        np.testing.assert_array_equal(o, s)
+
+
+def test_tiers_route_to_their_kernels(cuda):
+    img = np.random.default_rng(24).integers(0, 256, (40, 52, 3), dtype=np.uint8)
+    for tier, kernel in (("float32", "K1"), ("bfloat16", "K2"),
+                         ("bfloat16_fast", "K3")):
+        before = dict(fused_conv.launches_by)
+        lt.upscale(img, 2.0, lt.SRCNNConfig(compute_dtype=tier), device=cuda)
+        after = fused_conv.launches_by
+        assert {k: after[k] - before[k] for k in after} == {
+            k: int(k == kernel) for k in after}

@@ -126,12 +126,9 @@ def test_process_srcnn_step_scale_unit_multiply():
 
 
 @pytest.mark.parametrize("cfg,item", [
-    (dict(compute_dtype="bfloat16"), "M6"),
-    (dict(compute_dtype="bfloat16_fast"), "M6"),
     (dict(compute_dtype="int8"), "M10"),
     (dict(model="fsrcnn"), "M9"),
     (dict(model="vdsr"), "M9"),
-    (dict(self_ensemble=True), "M7"),
 ])
 def test_unported_options_raise(cfg, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -167,7 +164,8 @@ def test_no_cpu_stand_in_for_the_card(monkeypatch):
 
 def test_import_leaves_jax_out():
     code = ("import sys, libsrcnn_tpu_torch, libsrcnn_tpu_torch.kernels.fused_conv, "
-            "libsrcnn_tpu_torch.kernels._build, libsrcnn_tpu_torch.eval; "
+            "libsrcnn_tpu_torch.kernels._build, libsrcnn_tpu_torch.eval, "
+            "libsrcnn_tpu_torch.serve; "
             "from libsrcnn_tpu_torch.models import srcnn; srcnn.load_params(); "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'libsrcnn_tpu' not in sys.modules, 'libsrcnn_tpu imported'")
