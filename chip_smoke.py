@@ -6,15 +6,16 @@ Drives the port's paths on the card through its hand-written CUDA kernels
 (SRCNN 9-1-5 at its full width, shipped weights), in phases:
 
 1. require a CUDA device; print the card's name and power limit;
-2. build both kernel libraries from ``libsrcnn_tpu_torch/kernels/csrc``
+2. build the three kernel libraries from ``libsrcnn_tpu_torch/kernels/csrc``
    (one nvcc each, started together, sm_90a);
 3. hold every kernel against its plain PyTorch version on the card at the
    listed plane shapes and edge flags, and a batch of 3 planes in one
    launch: K1 (exact) max abs error <= 2e-3; K2 (split) and K3h (split,
    hi/lo-packed conv1) <= 5e-3; K3 (bf16x1) 99.9th percentile <= 0.05 and
    max <= 2.0 (a rare flipped bf16 rounding of h1 moves a pixel by up to
-   ~1); K3n equal to K3 bit for bit; a batched launch equal to the planes
-   launched one at a time;
+   ~1); K3n equal to K3 bit for bit; K4 (int8) equal to its plain version
+   bit for bit; a batched launch equal to the planes launched one at a
+   time;
 4. the main path, exact tier: ``upscale(..., device="cuda")`` on four
    seeded 1024x1024 RGB frames at x2, the 29 reference-binary golden
    configs and one ``process_srcnn`` call -- K1 launched once per pass,
@@ -28,15 +29,26 @@ Drives the port's paths on the card through its hand-written CUDA kernels
    launched once per pass, within the JAX package's envelope of the exact
    tier (split <= 2 u8, bf16x1 <= 3 u8, SSIM >= 0.995), K3h within 1 u8 of
    K2, K3n equal to K3, and K3 within 1 u8 of the plain bf16 path;
-6. serving at every tier: ``upscale_frames`` on the 4-frame clip equals
-   ``upscale`` per frame bit for bit with one launch per clip,
-   ``VideoUpscaler.stream`` likewise, and the flip ensemble of a frame
-   through ``upscale`` equals ``upscale_frames`` of it;
-7. time at 2048x2048 each kernel (its launch on weights packed once, and
-   through ``forward_y``) beside its plain version (and, for K3 / K3n, the
-   cuDNN bf16 conv stack as a library yardstick), the frame pass
-   and ``upscale_frames`` per frame at each tier (medians of CUDA-event
-   timings after a warm-up).
+   then the int8 tier on the same inputs: K4 launched once per pass, each
+   output within 1 u8 of the plain int8 path on the card (the count of
+   differing pixels printed; 0 expected), butterfly256 x2 >= 38 dB PSNR
+   against the exact tier;
+6. serving at every tier, int8 included: ``upscale_frames`` on the
+   4-frame clip equals ``upscale`` per frame bit for bit with one launch
+   per clip, ``VideoUpscaler.stream`` likewise, and the flip ensemble of a
+   frame through ``upscale`` equals ``upscale_frames`` of it;
+7. the chunked path at ``float32``, ``bfloat16`` and ``bfloat16_fast``:
+   ``upscale_chunked`` of a 1024^2 frame at x2 with 256- and 13-row bands,
+   output and conv map equal to ``upscale``'s; the band-wise ensemble equal
+   to ``upscale(self_ensemble=True)``; a 4096x2048 frame at x2 in 512-row
+   bands equal to the one-shot pass, at no more than half its peak device
+   memory (both peaks and the chunked MP/s printed);
+8. time at 2048x2048 each kernel (its launch on weights packed once, and
+   through its wrapper) beside its plain version and a library yardstick
+   (K1, K2, K3h: the cuDNN f32 conv stack; K3, K3n: the cuDNN bf16 conv
+   stack; K4: ``torch._int_mm`` on the three im2col'd layers), the frame
+   pass and ``upscale_frames`` per frame at each tier (medians of
+   CUDA-event timings after a warm-up).
 
 The second-to-last line is a JSON record of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
@@ -68,7 +80,8 @@ BF16X1_P999 = 0.05
 TIER_LSB = {"bfloat16": 2, "bfloat16_fast": 3}
 TIER_SSIM = 0.995
 
-# kernel -> (forward_y mode, source, the TPU kernel it replaces)
+# kernel -> (forward_y mode, source, the TPU kernel it replaces); K4 runs
+# through forward_y_int8
 KERNELS = {
     "K1": (dict(precision="exact"), "fused_srcnn.cu", "libsrcnn_tpu/kernels/fused_conv.py:199"),
     "K2": (dict(precision="split"), "fused_srcnn_bf16.cu", "libsrcnn_tpu/kernels/fused_conv.py:121"),
@@ -77,13 +90,17 @@ KERNELS = {
             "libsrcnn_tpu/kernels/fused_conv.py:243"),
     "K3n": (dict(precision="bf16x1", geom="narrow"), "fused_srcnn_bf16.cu",
             "libsrcnn_tpu/kernels/fused_conv.py:73"),
+    "K4": (None, "fused_srcnn_int8.cu", "libsrcnn_tpu/kernels/fused_conv.py:325"),
 }
+INT8_PSNR = 38.0     # butterfly x2 against the exact tier (tests/test_int8.py)
 # H100 SXM dense peak rates at 700 W (NVIDIA's data sheet)
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 MACS_PER_PIXEL = 81 * 64 + 64 * 32 + 25 * 32        # 8,032
 N_PARAMS = 8129
+INT8_PACK_BYTES = 8812
 
 
 def smooth_plane(rng, h: int, w: int) -> np.ndarray:
@@ -143,14 +160,18 @@ def lsb(a: np.ndarray, b: np.ndarray) -> int:
 def bound(kernel: str, n: int, h: int, w: int) -> tuple[float, str]:
     """Least time (ms) the card could take for the kernel's work on n
     [h, w] planes, and what sets it: the useful MACs at the tensor-core
-    bf16 rate (two passes for the split forms) or the f32 FMA rate (K1),
-    or the planes in and out plus the parameters at the memory rate."""
+    bf16 rate (two passes for the split forms), the int8 rate (K4) or the
+    f32 FMA rate (K1), or the planes in and out plus the parameters at the
+    memory rate."""
     macs = MACS_PER_PIXEL * n * h * w
     if kernel == "K1":
         ops_s = 2 * macs / PEAK_F32_FLOPS
+    elif kernel == "K4":
+        ops_s = 2 * macs / PEAK_INT8_OPS
     else:
         ops_s = (2 if kernel in ("K2", "K3h") else 1) * 2 * macs / PEAK_BF16_FLOPS
-    bytes_s = 4 * (n * (h + 12) * (w + 12) + n * h * w + N_PARAMS) / PEAK_BYTES
+    param_bytes = INT8_PACK_BYTES if kernel == "K4" else 4 * N_PARAMS
+    bytes_s = (4 * (n * (h + 12) * (w + 12) + n * h * w) + param_bytes) / PEAK_BYTES
     return (1e3 * max(ops_s, bytes_s),
             "operations" if ops_s >= bytes_s else "bytes")
 
@@ -171,7 +192,7 @@ def main() -> int:
     from libsrcnn_tpu_torch import pipeline
     from libsrcnn_tpu_torch.eval import psnr, ssim
     from libsrcnn_tpu_torch.kernels import _build, fused_conv
-    from libsrcnn_tpu_torch.models import srcnn
+    from libsrcnn_tpu_torch.models import srcnn, srcnn_int8
 
     dev = torch.device("cuda")
     t_start = time.perf_counter()
@@ -179,7 +200,7 @@ def main() -> int:
     # --- 2. build ---------------------------------------------------------
     t = time.perf_counter()
     fused_conv.build_all()
-    print(f"build: fused_srcnn.cu + fused_srcnn_bf16.cu in "
+    print(f"build: fused_srcnn.cu + fused_srcnn_bf16.cu + fused_srcnn_int8.cu in "
           f"{time.perf_counter() - t:.1f} s ({' '.join(_build.NVCC_FLAGS)})")
     for name, log in _build.build_logs.items():
         for line in log.splitlines():
@@ -188,10 +209,12 @@ def main() -> int:
 
     # --- 3. kernels vs plain versions on the card --------------------------
     params = srcnn.load_params(dev)
+    qparams = srcnn_int8.load_params(dev)
     rng = np.random.default_rng(0)
     max_err = {k: 0.0 for k in KERNELS}
     cases = [((3, 3), None), ((33, 47), None), ((37, 53), None),
-             ((130, 250), None), ((2048, 2048), None), ((130, 250), (0, 1, 0, 1))]
+             ((130, 250), None), ((2048, 2048), None), ((130, 250), (0, 1, 0, 1)),
+             ((130, 250), (0, 0, 0, 0))]
     planes = [torch.from_numpy(smooth_plane(rng, h + 12, w + 12)).to(dev)
               for (h, w), _ in cases]
     batch = torch.stack([torch.from_numpy(smooth_plane(rng, 142, 262))
@@ -199,6 +222,18 @@ def main() -> int:
     for ((h, w), flags), y in list(zip(cases, planes)) + [(((130, 250), None), batch)]:
         got = {}
         for name, (mode, _, _) in KERNELS.items():
+            if name == "K4":
+                got[name] = fused_conv.forward_y_int8(qparams, y, h, w, flags)
+                torch.cuda.synchronize()
+                ref = fused_conv.forward_y_int8_reference(qparams, y, h, w, flags)
+                err = float((got[name] - ref).abs().max())
+                print(f"K4 vs plain {'3 planes ' if y.dim() == 3 else ''}{h}x{w} "
+                      f"flags={flags or (1, 1, 1, 1)}: max abs err {err:.3g}, "
+                      f"bit-equal {torch.equal(got[name], ref)}")
+                check(torch.equal(got[name], ref), f"K4 differs from its plain "
+                      f"version at {h}x{w} flags={flags}")
+                max_err[name] = max(max_err[name], err)
+                continue
             got[name] = fused_conv.forward_y(params, y, h, w, flags, **mode)
             torch.cuda.synchronize()
             if name == "K3n":
@@ -222,7 +257,9 @@ def main() -> int:
         if y.dim() == 3:
             for name, (mode, _, _) in KERNELS.items():
                 for i in range(y.shape[0]):
-                    one = fused_conv.forward_y(params, y[i], h, w, flags, **mode)
+                    one = (fused_conv.forward_y_int8(qparams, y[i], h, w, flags)
+                           if name == "K4" else
+                           fused_conv.forward_y(params, y[i], h, w, flags, **mode))
                     check(torch.equal(got[name][i], one),
                           f"{name}: batched launch differs from plane {i}")
             print("batched launch of 3 planes == 3 single launches, every kernel")
@@ -356,10 +393,44 @@ def main() -> int:
     print(f"bfloat16_fast: K3 path vs plain bf16 path on the card max {d} LSB")
     check(d <= 1, f"K3 path {d} LSB off the plain bf16 path")
 
+    # the int8 tier on the same inputs: K4 once per pass, within 1 u8 of the
+    # plain int8 path, and the quantization's cost against the exact tier
+    int8 = lt.SRCNNConfig(compute_dtype="int8")
+    pipeline.run_pass = counted_run_pass
+    try:
+        reset_counts()
+        outs = [lt.upscale(f, 2.0, int8, device="cuda") for f in frames]
+        outs += [lt.upscale(img, s, int8, device="cuda") for _, img, s in quality]
+        torch.cuda.synchronize()
+        launches["K4"] = fused_conv.launches_by["K4"]
+        check(fused_conv.launches == passes == launches["K4"],
+              f"int8 via K4: {dict(fused_conv.launches_by)} launches for "
+              f"{passes} passes")
+    finally:
+        pipeline.run_pass = run_pass
+    tier_outs["K4"] = outs
+    plain_int8 = lt.SRCNNConfig(compute_dtype="int8", use_kernel=False)
+    names = [f"frame {i}" for i in range(4)] + [f"{n} x{s:g}" for n, _, s in quality]
+    inputs = [(f, 2.0) for f in frames] + [(img, s) for _, img, s in quality]
+    worst, n_diff, psnrs = 0, 0, {}
+    for name, (img, s), out, ref in zip(names, inputs, outs, frame_outs + exact_q):
+        check(out.shape == ref.shape and out.dtype == np.uint8, f"int8 {name}: shape")
+        plain = lt.upscale(img, s, plain_int8, device="cuda")
+        worst = max(worst, lsb(out, plain))
+        n_diff += int((out != plain).sum())
+        psnrs[name] = psnr(out, ref)
+    print(f"int8 via K4: {passes} passes, {launches['K4']} launches; kernel path "
+          f"vs plain int8 path on the card max {worst} u8, {n_diff} values differ "
+          f"in all; PSNR vs the exact tier "
+          + ", ".join(f"{k} {v:.2f} dB" for k, v in psnrs.items()))
+    check(worst <= 1, f"int8 kernel path {worst} u8 off the plain int8 path")
+    check(psnrs["butterfly256 x2"] >= INT8_PSNR,
+          f"int8 butterfly256 x2 at {psnrs['butterfly256 x2']:.2f} dB")
+
     # --- 6. serving at every tier -------------------------------------------
     clip = np.stack(frames)
     per_frame = {"float32": frame_outs, "bfloat16": tier_outs["K2"][:4],
-                 "bfloat16_fast": tier_outs["K3"][:4]}
+                 "bfloat16_fast": tier_outs["K3"][:4], "int8": tier_outs["K4"][:4]}
     for tier, singles in per_frame.items():
         cfg = lt.SRCNNConfig(compute_dtype=tier)
         reset_counts()
@@ -380,21 +451,88 @@ def main() -> int:
               f"stream == upscale per frame; ensemble == upscale_frames, "
               f"{lsb(e1, singles[0])} u8 from the plain pass")
 
-    # --- 7. timing -----------------------------------------------------------
+    # --- 7. the chunked path through K1-K3 -------------------------------------
+    big = frame(200, 2048, 4096)            # 4096 wide, 2048 tall: 8192x4096 out
+    chunk_kernels = {"float32": "K1", "bfloat16": "K2", "bfloat16_fast": "K3"}
+
+    def run_peak(fn):
+        """fn's result, its peak device memory above what was allocated
+        before it (bytes), and its host seconds, ended by a synchronize."""
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, torch.cuda.max_memory_allocated() - base, time.perf_counter() - t0
+
+    for tier, kernel in chunk_kernels.items():
+        cfg = lt.SRCNNConfig(compute_dtype=tier)
+        ref, refc = lt.upscale(frames[0], 2.0, cfg, return_conv_map=True, device="cuda")
+        counts = []
+        for band in (256, 13):
+            reset_counts()
+            out, conv = lt.upscale_chunked(frames[0], 2.0, cfg, band_rows=band,
+                                           device="cuda")
+            counts.append(fused_conv.launches_by[kernel])
+            check(fused_conv.launches == counts[-1] > 0,
+                  f"chunked {tier}: {dict(fused_conv.launches_by)} launches")
+            check(np.array_equal(out, ref) and np.array_equal(conv, refc),
+                  f"chunked {tier} with {band}-row bands differs from upscale")
+        ens = dataclasses.replace(cfg, self_ensemble=True)
+        e_ref, e_refc = lt.upscale(frames[0], 2.0, ens, return_conv_map=True,
+                                   device="cuda")
+        e_out, e_conv = lt.upscale_chunked(frames[0], 2.0, ens, band_rows=256,
+                                           device="cuda")
+        check(np.array_equal(e_out, e_ref) and np.array_equal(e_conv, e_refc),
+              f"chunked {tier} ensemble differs from upscale's")
+        (one, one_c), one_peak, one_s = run_peak(
+            lambda: lt.upscale(big, 2.0, cfg, return_conv_map=True, device="cuda"))
+        reset_counts()
+        (chk, chk_c), chk_peak, _ = run_peak(
+            lambda: lt.upscale_chunked(big, 2.0, cfg, band_rows=512, device="cuda"))
+        n_big = fused_conv.launches_by[kernel]
+        check(fused_conv.launches == n_big == 8,
+              f"chunked {tier} 4096x2048: {dict(fused_conv.launches_by)} launches")
+        check(np.array_equal(chk, one) and np.array_equal(chk_c, one_c),
+              f"chunked {tier} 4096x2048 differs from the one-shot pass")
+        _, _, chk_s = run_peak(
+            lambda: lt.upscale_chunked(big, 2.0, cfg, band_rows=512, device="cuda"))
+        mp = 8192 * 4096 / 1e6
+        print(f"chunked {tier} via {kernel}: 1024^2 x2 in 256- and 13-row bands "
+              f"({counts[0]} and {counts[1]} launches) and the band-wise ensemble "
+              f"== upscale bit for bit; 4096x2048 -> 8192x4096 in 512-row bands "
+              f"({n_big} launches) == the one-shot pass, peak device memory "
+              f"{chk_peak / 2**20:.1f} MiB vs one-shot {one_peak / 2**20:.1f} MiB "
+              f"({chk_peak / one_peak:.3f}x), chunked {chk_s * 1e3:.1f} ms = "
+              f"{mp / chk_s:.1f} MP/s (one-shot {one_s * 1e3:.1f} ms = "
+              f"{mp / one_s:.1f} MP/s, first call), host clock, fetches included")
+        check(chk_peak <= 0.5 * one_peak,
+              f"chunked {tier} peak {chk_peak} B > half the one-shot {one_peak} B")
+    del big, one, one_c, chk, chk_c
+
+    # --- 8. timing -----------------------------------------------------------
     # a kernel's time is its launch on weights packed once; the wrapper's
     # adds packing the 8,129 weights on every call
     y = torch.from_numpy(smooth_plane(rng, 2060, 2060)).to(dev)
     packed = fused_conv.pack_params(params).to(dev)
+    packed_int8 = fused_conv.pack_int8_params(qparams)
     y_out = torch.empty(2048, 2048, device=dev)
     kern_ms, plain_ms = {}, {}
     for name, (mode, _, _) in KERNELS.items():
-        pmode = {k: v for k, v in mode.items() if k != "geom"}
-        t = timed({"plain": lambda: fused_conv.forward_y_reference(params, y, 2048, 2048, **pmode),
+        if name == "K4":
+            fns = {"plain": lambda: fused_conv.forward_y_int8_reference(qparams, y, 2048, 2048),
+                   "kernel": lambda: fused_conv.launch("K4", packed_int8, y, y_out),
+                   "wrapper": lambda: fused_conv.forward_y_int8(qparams, y, 2048, 2048)}
+        else:
+            pmode = {k: v for k, v in mode.items() if k != "geom"}
+            fns = {"plain": lambda: fused_conv.forward_y_reference(params, y, 2048, 2048, **pmode),
                    "kernel": lambda: fused_conv.launch(name, packed, y, y_out),
-                   "wrapper": lambda: fused_conv.forward_y(params, y, 2048, 2048, **mode)})
+                   "wrapper": lambda: fused_conv.forward_y(params, y, 2048, 2048, **mode)}
+        t = timed(fns)
         kern_ms[name], plain_ms[name] = t["kernel"], t["plain"]
         print(f"timing on {card}, median of 10: 2048^2 conv stack {name} "
-              f"{t['kernel']:.3f} ms (through forward_y {t['wrapper']:.3f} "
+              f"{t['kernel']:.3f} ms (through its wrapper {t['wrapper']:.3f} "
               f"ms), its plain version {t['plain']:.3f} ms")
     # the nearest library computation to K3: cuDNN's bf16 convs (valid on the
     # halo plane, no ring clamp; their outputs are bf16); the port never calls it
@@ -406,13 +544,60 @@ def main() -> int:
         c2 = torch.relu(torch.nn.functional.conv2d(h1, pb["w2"], pb["b2"]))
         return torch.nn.functional.conv2d(c2, pb["w3"], pb["b3"]).clamp(0, 255)
 
-    lib_ms = timed({"lib": cudnn_bf16})["lib"]
-    print(f"timing on {card}, median of 10: 2048^2 cuDNN bf16 conv stack "
-          f"(library yardstick for K3) {lib_ms:.3f} ms")
+    y4 = y[None, None]
+
+    def cudnn_f32():
+        with srcnn.exact_f32(dev):
+            h1 = torch.relu(torch.nn.functional.conv2d(y4, params["w1"], params["b1"]))
+            c2 = torch.relu(torch.nn.functional.conv2d(h1, params["w2"], params["b2"]))
+            return torch.nn.functional.conv2d(c2, params["w3"], params["b3"]).clamp(0, 255)
+
+    lib = timed({"bf16": cudnn_bf16, "f32": cudnn_f32})
+    print(f"timing on {card}, median of 10: 2048^2 cuDNN conv stacks (valid "
+          f"convs on the halo plane, no ring clamp): bf16 {lib['bf16']:.3f} ms "
+          f"(library yardstick for K3, K3n), f32 with TF32 off "
+          f"{lib['f32']:.3f} ms (for K1, K2, K3h)")
+    # the nearest library computation to K4: cuBLAS int8 GEMMs on the three
+    # layers' im2col'd operands (conv1 over the 2052^2 c2 ring region, K
+    # padded to 96; conv2; conv3 as a K=800 GEMM, N padded to 8).  It leaves
+    # out the im2col itself, the quantize and requant epilogues and the
+    # ring clamp; the codes are random, which does not change its time.
+    # The weights go in column-major: cuBLASLt's int8 GEMM takes only the
+    # "TN" layout, which a row-major second operand does not give.
+    lib_int8, lib_int8_why = None, ""
+    try:
+        m1, m3 = 2052 * 2052, 2048 * 2048
+        w1m = torch.zeros(96, 64, dtype=torch.int8, device=dev)
+        w1m[:81] = qparams["w1q"]
+        w3m = torch.zeros(800, 8, dtype=torch.int8, device=dev)
+        w3m[:, 0] = srcnn_int8.w3_taps(qparams["w3q"]).reshape(-1)
+        gemms = [(torch.randint(0, 128, (m1, 96), dtype=torch.int8, device=dev), w1m),
+                 (torch.randint(0, 128, (m1, 64), dtype=torch.int8, device=dev),
+                  qparams["w2q"]),
+                 (torch.randint(0, 128, (m3, 800), dtype=torch.int8, device=dev), w3m)]
+        gemms = [(a, b.t().contiguous().t()) for a, b in gemms]
+
+        def int_mm_stack():
+            return [torch._int_mm(a, b) for a, b in gemms]
+
+        int_mm_stack()
+        torch.cuda.synchronize()
+        lib_int8 = timed({"lib": int_mm_stack})["lib"]
+        print(f"timing on {card}, median of 10: 2048^2 torch._int_mm on the three "
+              f"im2col'd int8 layers (library yardstick for K4; no im2col, "
+              f"epilogues or ring clamp) {lib_int8:.3f} ms")
+        del gemms
+    except RuntimeError as e:
+        lib_int8_why = str(e).strip().splitlines()[0]
+        print(f"timing on {card}: torch._int_mm yardstick for K4: — ({lib_int8_why})")
+    library_ms = {"K1": lib["f32"], "K2": lib["f32"], "K3h": lib["f32"],
+                  "K3": lib["bf16"], "K3n": lib["bf16"], "K4": lib_int8}
 
     img = torch.tensor(frames[1], device=dev)
-    tiers = ("float32", "bfloat16", "bfloat16_fast")
-    fns = {t_: (lambda c=lt.SRCNNConfig(compute_dtype=t_): pipeline.run_pass(img, params, 2.0, c))
+    tiers = ("float32", "bfloat16", "bfloat16_fast", "int8")
+    tier_params = {t_: qparams if t_ == "int8" else params for t_ in tiers}
+    fns = {t_: (lambda c=lt.SRCNNConfig(compute_dtype=t_), p=tier_params[t_]:
+                pipeline.run_pass(img, p, 2.0, c))
            for t_ in tiers}
     fns["float32 plain"] = lambda: pipeline.run_pass(
         img, params, 2.0, lt.SRCNNConfig(use_kernel=False))
@@ -424,8 +609,8 @@ def main() -> int:
     parts = timed({"upload": lambda: torch.tensor(clip, device=dev),
                    "download": lambda: torch.empty(4, 2048, 2048, 3, dtype=torch.uint8,
                                                    device=dev).cpu().numpy()}
-                  | {t_: (lambda c=lt.SRCNNConfig(compute_dtype=t_):
-                          pipeline.run_pass(clip_dev, params, 2.0, c))
+                  | {t_: (lambda c=lt.SRCNNConfig(compute_dtype=t_), p=tier_params[t_]:
+                          pipeline.run_pass(clip_dev, p, 2.0, c))
                      for t_ in tiers}, runs=3)
     for t_ in tiers:
         print(f"timing on {card}: 1024^2 -> 2048^2 frame pass {t_} "
@@ -451,7 +636,7 @@ def main() -> int:
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": max_err[name], "ms": kern_ms[name],
             "plain_ms": plain_ms[name], "bound_ms": bms, "bound_by": by,
-            "library_ms": lib_ms if name in ("K3", "K3n") else None,
+            "library_ms": library_ms[name],
         })
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from .config import DEFAULT_CONFIG, FilterType, SRCNNConfig
+from .models import srcnn_int8
 from .models.srcnn import SRCNN915
 from .ops.resize import scaled_size
 from . import pipeline
@@ -54,16 +55,25 @@ def _device(device: str | torch.device) -> torch.device:
     return dev
 
 
-@functools.lru_cache(maxsize=8)
-def _default_model(dev: torch.device) -> SRCNN915:
-    return SRCNN915().to(dev)
+@functools.lru_cache(maxsize=16)
+def _default_params(tier: str, dev: torch.device) -> dict:
+    return pipeline.load_model_params(SRCNNConfig(compute_dtype=tier), dev)
 
 
-def _params_on(params, dev: torch.device) -> dict:
+def _params_on(params, config: SRCNNConfig, dev: torch.device) -> dict:
+    """The parameters a pass of ``config`` runs with, on ``dev``: the
+    tier's defaults (cached per tier and device) when ``params`` is None.
+    The int8 tier takes the quantized pack with its dtypes (int8 weights,
+    f32 scales); the float tiers take f32 weights."""
     if params is None:
-        return _default_model(dev).params()
+        return _default_params(config.compute_dtype, dev)
     if isinstance(params, SRCNN915):
         params = params.params()
+    if config.compute_dtype == "int8":
+        params = {k: (v if isinstance(v, torch.Tensor) else torch.tensor(np.asarray(v)))
+                  .to(dev) for k, v in params.items()}
+        srcnn_int8.check_params(params)
+        return params
     return {k: torch.as_tensor(v, dtype=torch.float32).to(dev)
             for k, v in params.items()}
 
@@ -86,7 +96,9 @@ def upscale(
       config: immutable run options (filter, step_scale, use_kernel, ...).
       params: SRCNN params, OIHW tensors (see
         :func:`.models.srcnn.params_from_jax`) or an :class:`SRCNN915`;
-        defaults to the pre-trained 9-1-5 weights.
+        at ``compute_dtype="int8"`` the quantized pack (see
+        :func:`.models.srcnn_int8.params_from_jax`).  Defaults to the
+        tier's shipped weights.
       return_conv_map: also return the u8 Y-channel conv3 map; defaults to
         ``config.emit_conv_map``.
       device: where the pass runs.  ``"cuda"`` (default) raises when there
@@ -110,7 +122,7 @@ def upscale(
     h, w, _ = img.shape
     if float(scale) <= 0.0 or min(scaled_size(w, h, scale)) <= 0:
         raise ValueError(f"invalid scale factor {scale}")
-    params = _params_on(params, dev)
+    params = _params_on(params, config, dev)
     if config.self_ensemble:
         out, conv = _upscale_flip_ensemble(img, scale, config, params, dev)
         return (out, conv) if want_conv else out

@@ -55,7 +55,10 @@ class SRCNNConfig:
         ``"bfloat16_fast"``: bf16x1 on the card (K3: one bf16 pass), <=3
         u8 off.  Off the kernel (``use_kernel=False`` or the CPU) both bf16
         tiers run the JAX package's XLA twin (bf16-rounded operands, f32
-        accumulation).  ``"int8"`` is not ported yet (ROADMAP M10).
+        accumulation).  ``"int8"``: the quantized pack's int8 GEMMs with
+        int32 accumulation and folded requant epilogues (K4 on the card,
+        the exact plain convs of ``models/srcnn_int8`` elsewhere, equal bit
+        for bit), ~40 dB PSNR from the exact tier.
       self_ensemble: flip self-ensemble: the four flips of the frame go
         through one batched pass, are flipped back and averaged in f32,
         then rounded ties-to-even.

@@ -13,7 +13,14 @@ K2        ``"split"``                 ``csrc/fused_srcnn_bf16.cu``
 K3h       ``"split"``, ``pack_im2col=True``   the same, hi/lo-packed conv1
 K3        ``"bf16x1"``                the same
 K3n       ``"bf16x1"``, ``geom="narrow"``     the same, narrower tile
+K4        the int8 tier               ``csrc/fused_srcnn_int8.cu``
 ========  ==========================  ===================================
+
+K4 ports ``_kernel_int8`` (reached through ``_fused_int8`` /
+``forward_y_int8``), with the quantized pack of :mod:`..models.srcnn_int8`:
+:func:`forward_y_int8` and its plain version
+:func:`forward_y_int8_reference`.  The JAX package's int8 tile height
+(``INT8_TH = 80``) follows Mosaic's VMEM limits and is not carried over.
 
 The TPU kernel's tile geometry (TW=124 columns, 384-lane windows, the
 im2col scratch, lane rolls, the i32 tap-pair words) follows Mosaic's layout
@@ -43,7 +50,7 @@ import functools
 
 import torch
 
-from ..models import srcnn
+from ..models import srcnn, srcnn_int8
 
 HALO = 6          # 4 (conv1) + 2 (conv3) each side
 
@@ -62,7 +69,7 @@ NARROW_DEFAULT = False
 #: process
 launches = 0
 #: the same, by kernel
-launches_by = {"K1": 0, "K2": 0, "K3": 0, "K3h": 0, "K3n": 0}
+launches_by = {"K1": 0, "K2": 0, "K3": 0, "K3h": 0, "K3n": 0, "K4": 0}
 
 #: kernel -> index the bf16 library's entry point takes
 _BF16_KERNELS = {"K2": 0, "K3": 1, "K3h": 2, "K3n": 3}
@@ -82,6 +89,23 @@ def pack_params(params: dict) -> torch.Tensor:
         params["b3"],
     ]
     return torch.cat([p.reshape(-1).to(torch.float32) for p in parts])
+
+
+def pack_int8_params(qparams: dict) -> torch.Tensor:
+    """int8 pack -> K4's byte layout (``csrc/fused_srcnn_int8.cu``): int8
+    w1q [81,64] (tap k = 9*dy + dx), w2q [64,32], w3 [25,32] (tap k =
+    5*dy + dx, :func:`..models.srcnn_int8.w3_taps`), 8,032 bytes; then f32
+    s1 t1 [64], s2 t2 [32], d3, b3 and the input scale 127/255 (the f32
+    value :func:`..models.srcnn_int8.quantize_input` multiplies by);
+    8,812 bytes, uint8, on the pack's device."""
+    srcnn_int8.check_params(qparams)
+    q = [qparams["w1q"], qparams["w2q"], srcnn_int8.w3_taps(qparams["w3q"])]
+    dev = qparams["w1q"].device
+    # torch.full fills on the device: no host-to-device copy per call
+    scales = [qparams[k] for k in ("s1", "t1", "s2", "t2", "d3", "b3")] + [
+        torch.full((1,), srcnn_int8.INPUT_SCALE, dtype=torch.float32, device=dev)]
+    return torch.cat([p.reshape(-1).view(torch.uint8) for p in q] +
+                     [torch.cat([p.reshape(-1) for p in scales]).view(torch.uint8)])
 
 
 def kernel_for(precision: str = "exact", pack_im2col: bool | None = None,
@@ -168,6 +192,28 @@ def forward_y_reference(params: dict, y_padded: torch.Tensor, h: int, w: int,
     return out[0] if squeeze else out
 
 
+def forward_y_int8_reference(qparams: dict, y_padded: torch.Tensor, h: int,
+                             w: int, edge_flags=None) -> torch.Tensor:
+    """Plain PyTorch version of :func:`forward_y_int8` (K4): the
+    ``models/srcnn_int8`` convs on the halo plane, with the ring clamp as
+    an index gather on conv2's accumulators (the folded requant that
+    follows is per position, so clamping acc2 or c2q is the same).  With
+    all flags set and a replicate halo it equals ``srcnn_int8.forward_y``
+    on the inner plane."""
+    _check_plane(y_padded, h, w)
+    srcnn_int8.check_params(qparams)
+    top, bottom, left, right = _flags(edge_flags)
+    dev = y_padded.device
+    squeeze = y_padded.dim() == 2
+    xq = srcnn_int8.quantize_input(y_padded[None] if squeeze else y_padded)
+    acc2 = srcnn_int8.conv12(qparams, xq)                   # [N,h+4,w+4,32]
+    acc2 = acc2.index_select(1, _ring_index(h, top, bottom, dev))
+    acc2 = acc2.index_select(2, _ring_index(w, left, right, dev))
+    c2q = srcnn_int8.fold_requant(acc2, qparams["s2"], qparams["t2"])
+    out = srcnn_int8.conv3(qparams, c2q)
+    return out[0] if squeeze else out
+
+
 def _declare(lib: ctypes.CDLL, prefix: str, n_int_args: int) -> ctypes.CDLL:
     for fn in ("n_params", "max_rows"):
         f = getattr(lib, f"{prefix}_{fn}")
@@ -180,17 +226,22 @@ def _declare(lib: ctypes.CDLL, prefix: str, n_int_args: int) -> ctypes.CDLL:
     return lib
 
 
+#: library -> (C prefix, int arguments of its ``_forward``)
+_LIBS = {"fused_srcnn": ("srcnn_fused", 7), "fused_srcnn_bf16": ("srcnn_bf16", 8),
+         "fused_srcnn_int8": ("srcnn_int8", 7)}
+
+
 @functools.lru_cache(maxsize=None)
 def _lib(name: str = "fused_srcnn") -> ctypes.CDLL:
     """A built kernel library (``fused_srcnn``: K1; ``fused_srcnn_bf16``:
-    K2, K3, K3h, K3n), with its C signatures declared."""
+    K2, K3, K3h, K3n; ``fused_srcnn_int8``: K4), with its C signatures
+    declared."""
     from . import _build
 
-    if name == "fused_srcnn":
-        return _declare(_build.load(name), "srcnn_fused", 7)
-    if name == "fused_srcnn_bf16":
-        return _declare(_build.load(name), "srcnn_bf16", 8)
-    raise ValueError(f"no kernel library {name!r}")
+    if name not in _LIBS:
+        raise ValueError(f"no kernel library {name!r}")
+    prefix, n_int_args = _LIBS[name]
+    return _declare(_build.load(name), prefix, n_int_args)
 
 
 def build_all() -> None:
@@ -198,9 +249,9 @@ def build_all() -> None:
     once) and load them."""
     from . import _build
 
-    _build.build("fused_srcnn", "fused_srcnn_bf16")
-    _lib("fused_srcnn")
-    _lib("fused_srcnn_bf16")
+    _build.build(*_LIBS)
+    for name in _LIBS:
+        _lib(name)
 
 
 def forward_y(params: dict, y_padded: torch.Tensor, h: int, w: int,
@@ -235,20 +286,52 @@ def forward_y(params: dict, y_padded: torch.Tensor, h: int, w: int,
     return out
 
 
+def forward_y_int8(qparams: dict, y_padded: torch.Tensor, h: int, w: int,
+                   edge_flags=None) -> torch.Tensor:
+    """The int8 tier's fused conv stack (K4) on halo planes ``[h+12,
+    w+12]`` or ``[N, h+12, w+12]`` f32 -> ``[h, w]`` or ``[N, h, w]``, with
+    the quantized pack of :mod:`..models.srcnn_int8` (port of
+    ``forward_y_int8``, `fused_conv.py:649-671` of the JAX package).  On a
+    CUDA tensor this launches K4 once for the whole batch and counts it;
+    on a CPU tensor it runs :func:`forward_y_int8_reference`.  Any other
+    device raises."""
+    _check_plane(y_padded, h, w)
+    flags = _flags(edge_flags)
+    dev = y_padded.device
+    if dev.type == "cpu":
+        return forward_y_int8_reference(qparams, y_padded, h, w, flags)
+    if dev.type != "cuda":
+        raise ValueError(f"fused_conv.forward_y_int8 takes CPU or CUDA "
+                         f"tensors, got {dev}")
+    if not y_padded.is_contiguous():
+        raise ValueError("y_padded must be contiguous")
+    out = torch.empty(y_padded.shape[:-2] + (h, w), dtype=torch.float32,
+                      device=dev)
+    launch("K4", pack_int8_params(qparams).to(dev), y_padded, out, flags)
+    return out
+
+
 def launch(kernel: str, packed: torch.Tensor, y_padded: torch.Tensor,
            out: torch.Tensor, flags=(1, 1, 1, 1)) -> None:
     """Launch ``kernel`` on CUDA tensors: ``packed`` from
-    :func:`pack_params`, ``y_padded`` [N, h+12, w+12] or [h+12, w+12] f32,
-    ``out`` [N, h, w] or [h, w] f32, all contiguous on one device, on its
-    current stream.  Adds one to :data:`launches` and :data:`launches_by`.
-    :func:`forward_y` checks its arguments and calls this; a caller that
-    keeps the packed weights of one parameter set may call it directly."""
+    :func:`pack_params` (K4: :func:`pack_int8_params`), ``y_padded``
+    [N, h+12, w+12] or [h+12, w+12] f32, ``out`` [N, h, w] or [h, w] f32,
+    all contiguous on one device, on its current stream.  Adds one to
+    :data:`launches` and :data:`launches_by`.  :func:`forward_y` and
+    :func:`forward_y_int8` check their arguments and call this; a caller
+    that keeps the packed weights of one parameter set may call it
+    directly."""
     global launches
+    if kernel not in launches_by:
+        raise ValueError(f"no kernel {kernel!r}; the kernels are {tuple(launches_by)}")
     h, w = out.shape[-2:]
-    for name, t in (("packed", packed), ("y_padded", y_padded), ("out", out)):
-        if (t.device != y_padded.device or t.dtype != torch.float32
+    pdtype = torch.uint8 if kernel == "K4" else torch.float32
+    for name, t, dtype in (("packed", packed, pdtype),
+                           ("y_padded", y_padded, torch.float32),
+                           ("out", out, torch.float32)):
+        if (t.device != y_padded.device or t.dtype != dtype
                 or not t.is_contiguous()):
-            raise ValueError(f"{name} must be a contiguous f32 tensor on "
+            raise ValueError(f"{name} must be a contiguous {dtype} tensor on "
                              f"{y_padded.device}")
     if y_padded.device.type != "cuda":
         raise ValueError(f"launch takes CUDA tensors, got {y_padded.device}")
@@ -257,14 +340,12 @@ def launch(kernel: str, packed: torch.Tensor, y_padded: torch.Tensor,
                          f"{list(out.shape)} hold different batches")
     _check_plane(y_padded, h, w)
     flags = _flags(flags)
-    if kernel == "K1":
-        lib, prefix, extra = _lib("fused_srcnn"), "srcnn_fused", ()
-    else:
-        lib, prefix, extra = (_lib("fused_srcnn_bf16"), "srcnn_bf16",
-                              (_BF16_KERNELS[kernel],))
+    name = {"K1": "fused_srcnn", "K4": "fused_srcnn_int8"}.get(kernel, "fused_srcnn_bf16")
+    lib, prefix = _lib(name), _LIBS[name][0]
+    extra = (_BF16_KERNELS[kernel],) if kernel in _BF16_KERNELS else ()
     n_params = getattr(lib, f"{prefix}_n_params")()
     if packed.numel() != n_params:
-        raise ValueError(f"packed params hold {packed.numel()} floats, the "
+        raise ValueError(f"packed params hold {packed.numel()} elements, the "
                          f"kernel takes {n_params}")
     max_rows = getattr(lib, f"{prefix}_max_rows")()
     if h > max_rows:

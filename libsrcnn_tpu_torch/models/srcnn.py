@@ -152,12 +152,23 @@ def _bias(b: torch.Tensor) -> torch.Tensor:
     return b.reshape(1, -1, 1, 1)
 
 
+def _conv1x1(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """1x1 conv [N,C,H,W] x [O,C,1,1] -> [N,O,H,W] as one channels-last
+    matmul.  oneDNN's 1x1 convolution sums the channels in another order
+    when the plane is small, so a band of a plane would not equal the
+    plane's rows; a matmul's rows do not depend on how many there are.
+    The result is contiguous NCHW, the layout conv3 is tuned for."""
+    out = h.permute(0, 2, 3, 1) @ w.reshape(w.shape[0], -1).t()
+    return out.permute(0, 3, 1, 2).contiguous()
+
+
 def conv12(params: dict, x: torch.Tensor, precision: str = "exact") -> torch.Tensor:
     """conv1 (9x9, valid) + ReLU, conv2 (1x1) + ReLU on [N,1,H,W] -> c2
-    [N,32,H-8,W-8]."""
+    [N,32,H-8,W-8].  The exact form gives each position the same sums
+    whatever the plane's height (the chunked path's bands rely on it)."""
     if precision == "exact":
         h1 = torch.relu(F.conv2d(x, params["w1"], params["b1"]))
-        return torch.relu(F.conv2d(h1, params["w2"], params["b2"]))
+        return torch.relu(_conv1x1(h1, params["w2"]) + _bias(params["b2"]))
     h1 = torch.relu(conv(x, params["w1"], precision) + _bias(params["b1"]))
     return torch.relu(conv(h1, params["w2"], precision) + _bias(params["b2"]))
 

@@ -10,13 +10,15 @@ tables, as device index / weight tensors) is built once and cached in
 On the kernel path the Y resize emits the conv stack's 6 px halo plane
 directly (``resize_plane_padded``) and a fused CUDA kernel consumes it: K1
 for the exact ``float32`` tier, K2 (split-bf16x2) for ``bfloat16``, K3
-(bf16x1) for ``bfloat16_fast`` (`libsrcnn_tpu/pipeline.py:181-209`).
-Otherwise -- ``use_kernel=False``, or a CPU tensor -- the Y plane goes
-through the plain ``models/srcnn`` convs, which for both bf16 tiers run the
-JAX package's XLA twin (bf16-rounded input, h1 and h2; f32 accumulation),
-as the JAX package does off the TPU.  So on the CPU the ``bfloat16`` tier
+(bf16x1) for ``bfloat16_fast`` (`libsrcnn_tpu/pipeline.py:181-209`), K4
+(int8 GEMMs) for ``int8`` (`:167-175`).  Otherwise -- ``use_kernel=False``,
+or a CPU tensor -- the Y plane goes through the plain convs: for both bf16
+tiers the JAX package's XLA twin (bf16-rounded input, h1 and h2; f32
+accumulation), as the JAX package does off the TPU, and for ``int8``
+``models/srcnn_int8`` (`:176-180`).  So on the CPU the ``bfloat16`` tier
 matches the JAX package's CPU output, not the split math K2 computes on
-the card.
+the card; the int8 tier's plain convs are exact, and K4 equals them bit
+for bit.
 
 A pass takes one frame ``[H, W, D]`` or a clip ``[N, H, W, D]``: the
 batch dimension rides through color and resize, and the clip's Y planes go
@@ -29,19 +31,17 @@ import torch
 
 from .config import FilterType, SRCNNConfig, chroma_filter
 from .kernels import fused_conv
-from .models import srcnn
+from .models import srcnn, srcnn_int8
 from .ops import color, resize
 
 #: valid srcnn compute tiers of the JAX package
 SRCNN_TIERS = ("float32", "bfloat16", "bfloat16_fast", "int8")
 
-#: tiers and models of the JAX package the port does not run yet, with the
-#: ROADMAP item that ports each
-UNPORTED_TIERS = {"int8": "M10 (kernel K4)"}
-
-#: srcnn tier -> GEMM mode of the fused kernel (`libsrcnn_tpu/pipeline.py:191-193`)
+#: srcnn float tier -> GEMM mode of the fused kernel
+#: (`libsrcnn_tpu/pipeline.py:191-193`); ``int8`` has its own kernel, K4
 KERNEL_PRECISION = {"float32": "exact", "bfloat16": "split",
                     "bfloat16_fast": "bf16x1"}
+#: models of the JAX package the port does not run yet (ROADMAP M9)
 UNPORTED_MODELS = ("fsrcnn", "espcn", "vdsr", "srcnn955")
 
 
@@ -56,19 +56,26 @@ def validate_compute_dtype(cfg: SRCNNConfig) -> None:
 
 def check_supported(cfg: SRCNNConfig) -> None:
     """Raise for a config the port cannot run: ValueError for what the JAX
-    package rejects too, NotImplementedError (naming the ROADMAP item) for
-    what it runs and the port does not run yet.  Nothing is substituted."""
+    package rejects too, NotImplementedError (naming ROADMAP M9) for the
+    models it runs and the port does not run yet.  Nothing is
+    substituted."""
     if cfg.model in UNPORTED_MODELS:
         raise NotImplementedError(
             f"model={cfg.model!r} is not ported yet (ROADMAP M9)")
     if cfg.model != "srcnn":
         raise ValueError(f"unknown model {cfg.model!r}")
     validate_compute_dtype(cfg)
-    if cfg.compute_dtype in UNPORTED_TIERS:
-        raise NotImplementedError(
-            f"compute_dtype={cfg.compute_dtype!r} is not ported yet "
-            f"(ROADMAP {UNPORTED_TIERS[cfg.compute_dtype]}); the port runs "
-            f"the tiers {tuple(KERNEL_PRECISION)}")
+
+
+def load_model_params(cfg: SRCNNConfig, device: str | torch.device = "cpu") -> dict:
+    """Default parameters of ``cfg``'s tier on ``device`` (srcnn; port of
+    `libsrcnn_tpu/pipeline.py:84-107`): the int8 tier's quantized pack,
+    else the 9-1-5 f32 weights, which every float tier takes (the bf16
+    tiers round them in the convs and kernels)."""
+    check_supported(cfg)
+    if cfg.compute_dtype == "int8":
+        return srcnn_int8.load_params(device)
+    return srcnn.load_params(device)
 
 
 def resolve_kernel(use_kernel: bool | None, device: torch.device) -> bool:
@@ -104,15 +111,23 @@ def _single_pass(img_u8: torch.Tensor, params: dict, *, dst_h: int, dst_w: int,
         y_r = resize.resize_plane_padded(planes[0], dst_h, dst_w, y_filter,
                                          halo, dst_h + 2 * halo,
                                          dst_w + 2 * halo)
-        y_sr = fused_conv.forward_y(params, y_r, dst_h, dst_w,
-                                    precision=KERNEL_PRECISION[compute_dtype])
+        if compute_dtype == "int8":
+            y_sr = fused_conv.forward_y_int8(params, y_r, dst_h, dst_w)
+        else:
+            y_sr = fused_conv.forward_y(params, y_r, dst_h, dst_w,
+                                        precision=KERNEL_PRECISION[compute_dtype])
     else:
         y_r = resize.resize_plane(planes[0], dst_h, dst_w, y_filter)
+
+        def plain(p):
+            if compute_dtype == "int8":
+                return srcnn_int8.forward_y(params, p)
+            return srcnn.forward_y(params, p, compute_dtype)
+
         # the plain convs run one plane at a time, so that a clip equals
         # its frames bit for bit whatever algorithm a batch would pick
-        y_sr = (torch.stack([srcnn.forward_y(params, p, compute_dtype)
-                             for p in y_r]) if y_r.dim() == 3
-                else srcnn.forward_y(params, y_r, compute_dtype))
+        y_sr = (torch.stack([plain(p) for p in y_r]) if y_r.dim() == 3
+                else plain(y_r))
 
     out_u8 = color.ycbcr_to_rgb(torch.stack([y_sr, *rest], dim=0))
     # conv3 output is already clamped to [0,255]; truncating u8 cast

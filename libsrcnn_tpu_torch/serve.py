@@ -64,7 +64,7 @@ def upscale_frames(frames: np.ndarray, scale: float = 2.0,
     pipeline.check_supported(config)
     dev = api._device(device)
     clip = _as_u8_clip(frames)
-    params = api._params_on(params, dev)
+    params = api._params_on(params, config, dev)
     x = torch.tensor(clip, device=dev)
     if config.self_ensemble:
         out, _ = _ensemble_pass(x, params, float(scale), config)
@@ -120,7 +120,7 @@ class VideoUpscaler:
         self.scale = float(scale)
         self.config = config
         self.device = api._device(device)
-        self.params = api._params_on(params, self.device)
+        self.params = api._params_on(params, config, self.device)
 
     def _run_one(self, frame: np.ndarray, sync: bool = False):
         """Dispatch one frame's pass; returns the device tensor, or (with

@@ -1,6 +1,7 @@
-"""The port on the card: the CUDA kernels against their plain versions,
-the kernel path against the plain path, batched and multi-stream launches,
-and the serving paths against ``upscale``.
+"""The port on the card: the CUDA kernels against their plain versions
+(K4 bit for bit), the kernel path against the plain path, batched and
+multi-stream launches, the serving paths against ``upscale``, and the
+chunked path against ``upscale`` at every float tier.
 
 Every test here needs an NVIDIA GPU and skips without one; the CUDA kernel
 has no CPU mode.  This file imports no jax, so it also runs where jax is
@@ -211,3 +212,123 @@ def test_tiers_route_to_their_kernels(cuda):
         after = fused_conv.launches_by
         assert {k: after[k] - before[k] for k in after} == {
             k: int(k == kernel) for k in after}
+
+
+# --- the int8 tier: K4 ----------------------------------------------------
+
+
+@pytest.fixture
+def qpack(cuda):
+    from libsrcnn_tpu_torch.models import srcnn_int8
+
+    return srcnn_int8.load_params(cuda)
+
+
+@pytest.mark.parametrize("shape,flags", [
+    ((3, 3), None), ((1, 70), None), ((70, 1), None), ((33, 47), None),
+    ((130, 250), None), ((130, 250), (0, 1, 0, 1)), ((67, 45), (1, 0, 1, 0)),
+    ((40, 40), (0, 0, 0, 0)), ((61, 181), (1, 0, 0, 1)),
+])
+def test_int8_kernel_equals_plain_version(cuda, qpack, shape, flags):
+    """K4's integer GEMMs are exact and its epilogues round as the plain
+    version's torch ops do: equal bit for bit."""
+    h, w = shape
+    y = _plane(h + 12, w + 12, 30, cuda)
+    before = fused_conv.launches_by["K4"]
+    got = fused_conv.forward_y_int8(qpack, y, h, w, flags)
+    torch.cuda.synchronize()
+    assert fused_conv.launches_by["K4"] == before + 1
+    ref = fused_conv.forward_y_int8_reference(qpack, y, h, w, flags)
+    assert got.shape == (h, w)
+    assert torch.equal(got, ref)
+
+
+def test_int8_batched_launch_equals_per_plane(cuda, qpack):
+    ys = torch.stack([_plane(75, 101, 31 + i, cuda) for i in range(3)])
+    before = fused_conv.launches
+    got = fused_conv.forward_y_int8(qpack, ys, 63, 89, (0, 1, 1, 0))
+    assert fused_conv.launches == before + 1 and got.shape == (3, 63, 89)
+    for i in range(3):
+        assert torch.equal(got[i], fused_conv.forward_y_int8(qpack, ys[i], 63, 89,
+                                                             (0, 1, 1, 0)))
+
+
+def test_int8_two_streams_two_packs(cuda, qpack):
+    """Launches with two int8 packs alternate on two streams; each result
+    equals its own plain version."""
+    pb = dict(qpack, w2q=torch.flip(qpack["w2q"], [0]).contiguous(),
+              s1=qpack["s1"] * 0.9)
+    y = _plane(140, 260, 32, cuda)
+    sa, sb = torch.cuda.Stream(), torch.cuda.Stream()
+    torch.cuda.synchronize()
+    outs = []
+    for i in range(8):
+        s, p = (sa, qpack) if i % 2 == 0 else (sb, pb)
+        with torch.cuda.stream(s):
+            outs.append(fused_conv.forward_y_int8(p, y, 128, 248))
+    torch.cuda.synchronize()
+    for i, got in enumerate(outs):
+        p = qpack if i % 2 == 0 else pb
+        assert torch.equal(got, fused_conv.forward_y_int8_reference(p, y, 128, 248))
+    assert not torch.equal(outs[0], outs[1])
+
+
+def test_int8_tier_routes_to_k4(cuda):
+    img = np.random.default_rng(33).integers(0, 256, (40, 52, 3), dtype=np.uint8)
+    cfg = lt.SRCNNConfig(compute_dtype="int8")
+    before = dict(fused_conv.launches_by)
+    out = lt.upscale(img, 2.0, cfg, device=cuda)
+    after = fused_conv.launches_by
+    assert {k: after[k] - before[k] for k in after} == {
+        k: int(k == "K4") for k in after}
+    plain = lt.upscale(img, 2.0, lt.SRCNNConfig(compute_dtype="int8",
+                                                use_kernel=False), device=cuda)
+    assert np.abs(out.astype(int) - plain.astype(int)).max() <= 1
+
+
+def test_int8_serving_equals_upscale(cuda):
+    z = np.load(GOLDENS)
+    b = z["in_butterfly_full"]
+    clip = np.stack([b[:96, :128], b[96:192, :128], b[160:256, 128:]])
+    cfg = lt.SRCNNConfig(compute_dtype="int8")
+    before = fused_conv.launches_by["K4"]
+    out = lt.upscale_frames(clip, 2.0, cfg, device=cuda)
+    assert fused_conv.launches_by["K4"] == before + 1
+    for f, o in zip(clip, out):
+        np.testing.assert_array_equal(o, lt.upscale(f, 2.0, cfg, device=cuda))
+    streamed = list(lt.VideoUpscaler(2.0, cfg, device=cuda).stream(clip))
+    for o, s in zip(out, streamed):
+        np.testing.assert_array_equal(o, s)
+    ens = lt.SRCNNConfig(compute_dtype="int8", self_ensemble=True)
+    np.testing.assert_array_equal(lt.upscale_frames(clip[:1], 2.0, ens, device=cuda)[0],
+                                  lt.upscale(clip[0], 2.0, ens, device=cuda))
+
+
+# --- the chunked path through K1-K3 ---------------------------------------
+
+
+@pytest.mark.parametrize("tier", ["float32", "bfloat16", "bfloat16_fast"])
+@pytest.mark.parametrize("scale,filt,band", [(2.0, 2, 13), (2.0, 2, 1),
+                                             (1.37, 3, 40), (0.5, 1, 7)])
+def test_chunked_bit_identical_on_card(cuda, tier, scale, filt, band):
+    """Bands start their tiles at other rows than the one-shot plane does;
+    every kernel's per-pixel sums are independent of that, so the chunked
+    output and conv map equal ``upscale``'s bit for bit."""
+    img = np.random.default_rng(34).integers(0, 256, (97, 83, 3), dtype=np.uint8)
+    cfg = lt.SRCNNConfig(filter=lt.FilterType(filt), compute_dtype=tier)
+    ref, refc = lt.upscale(img, scale, cfg, return_conv_map=True, device=cuda)
+    before = fused_conv.launches
+    out, conv = lt.upscale_chunked(img, scale, cfg, band_rows=band, device=cuda)
+    assert fused_conv.launches > before
+    np.testing.assert_array_equal(out, ref)
+    np.testing.assert_array_equal(conv, refc)
+
+
+@pytest.mark.parametrize("tier", ["float32", "bfloat16_fast"])
+def test_chunked_ensemble_on_card(cuda, tier):
+    img = np.random.default_rng(35).integers(0, 256, (61, 70, 4), dtype=np.uint8)
+    cfg = lt.SRCNNConfig(compute_dtype=tier, self_ensemble=True)
+    ref, refc = lt.upscale(img, 2.0, cfg, return_conv_map=True, device=cuda)
+    out, conv = lt.upscale_chunked(img, 2.0, cfg, band_rows=17, device=cuda)
+    np.testing.assert_array_equal(out, ref)
+    np.testing.assert_array_equal(conv, refc)

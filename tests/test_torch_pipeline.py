@@ -126,7 +126,6 @@ def test_process_srcnn_step_scale_unit_multiply():
 
 
 @pytest.mark.parametrize("cfg,item", [
-    (dict(compute_dtype="int8"), "M10"),
     (dict(model="fsrcnn"), "M9"),
     (dict(model="vdsr"), "M9"),
 ])
@@ -166,7 +165,9 @@ def test_import_leaves_jax_out():
     code = ("import sys, libsrcnn_tpu_torch, libsrcnn_tpu_torch.kernels.fused_conv, "
             "libsrcnn_tpu_torch.kernels._build, libsrcnn_tpu_torch.eval, "
             "libsrcnn_tpu_torch.serve; "
-            "from libsrcnn_tpu_torch.models import srcnn; srcnn.load_params(); "
+            "from libsrcnn_tpu_torch.models import srcnn, srcnn_int8; "
+            "srcnn.load_params(); srcnn_int8.load_params(); "
+            "libsrcnn_tpu_torch.upscale_chunked; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'libsrcnn_tpu' not in sys.modules, 'libsrcnn_tpu imported'")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
