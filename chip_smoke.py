@@ -6,8 +6,14 @@ Drives the port's paths on the card through its hand-written CUDA kernels
 (SRCNN 9-1-5 at its full width, shipped weights), in phases:
 
 1. require a CUDA device; print the card's name and power limit;
-2. build the three kernel libraries from ``libsrcnn_tpu_torch/kernels/csrc``
-   (one nvcc each, started together, sm_90a);
+2. build the six kernel libraries from ``libsrcnn_tpu_torch/kernels/csrc``
+   (one nvcc each, started together, sm_90a): the main path's three and
+   their profiling builds (``-DSRCNN_PROFILING``: K5 and the stage cuts K6
+   / K7); print each kernel's registers and spills; dump each cut
+   instance's SASS (``cuobjdump``) and check that its count of HMMA / IMMA
+   / FFMA instructions grows with each stage the cut keeps, so that no cut
+   has been optimised away (the full kernel adds only adds, so its count
+   equals or passes the last cut's);
 3. hold every kernel against its plain PyTorch version on the card at the
    listed plane shapes and edge flags, and a batch of 3 planes in one
    launch: K1 (exact) max abs error <= 2e-3; K2 (split) and K3h (split,
@@ -15,7 +21,12 @@ Drives the port's paths on the card through its hand-written CUDA kernels
    max <= 2.0 (a rare flipped bf16 rounding of h1 moves a pixel by up to
    ~1); K3n equal to K3 bit for bit; K4 (int8) equal to its plain version
    bit for bit; a batched launch equal to the planes launched one at a
-   time;
+   time; on the same planes K5 (row bands) equal to K3 bit for bit at
+   ``tile_h`` 64 and at the recommended ``fused_conv.BAND_TILE_H``; every
+   cut (``kernels/ablation``) against its plain version: K7 (the cuts of
+   K4) bit for bit, K6 (of K1, K2, K3) at its kernel's gate after scaling
+   the error by 255 / max(255, max |value|); each ``full`` cut equal to
+   the production kernel bit for bit;
 4. the main path, exact tier: ``upscale(..., device="cuda")`` on four
    seeded 1024x1024 RGB frames at x2, the 29 reference-binary golden
    configs and one ``process_srcnn`` call -- K1 launched once per pass,
@@ -48,7 +59,14 @@ Drives the port's paths on the card through its hand-written CUDA kernels
    (K1, K2, K3h: the cuDNN f32 conv stack; K3, K3n: the cuDNN bf16 conv
    stack; K4: ``torch._int_mm`` on the three im2col'd layers), the frame
    pass and ``upscale_frames`` per frame at each tier (medians of
-   CUDA-event timings after a warm-up).
+   CUDA-event timings after a warm-up); K5 at both band heights beside
+   K3, its plain version and the cuDNN bf16 stack;
+9. the kernel-profiling path, which launches K5-K7: with the launch
+   counts at 0, the port's ``tools.kernel_ablation`` tables of K1, K2 and
+   K3 and ``tools.int8_ablation``'s of K4 at 2048^2 (each stage's
+   CUDA-event median, its delta, MP/s and the production launch), and
+   ``tools.trace_kernel`` on K5 at both band heights; each of K5, K6 and
+   K7 launched in that run.
 
 The second-to-last line is a JSON record of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
@@ -60,6 +78,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -92,6 +111,15 @@ KERNELS = {
             "libsrcnn_tpu/kernels/fused_conv.py:73"),
     "K4": (None, "fused_srcnn_int8.cu", "libsrcnn_tpu/kernels/fused_conv.py:325"),
 }
+# the kernel-profiling path's kernels -> (source, the TPU kernel it replaces)
+PROFILING_KERNELS = {
+    "K5": ("fused_srcnn_bf16.cu", "libsrcnn_tpu/kernels/fused_conv.py:530"),
+    "K6": ("fused_srcnn.cu", "benchmarks/kernel_ablation.py:48"),
+    "K7": ("fused_srcnn_int8.cu", "benchmarks/int8_ablation.py:43"),
+}
+# the cut that stands for K6 / K7 in the kernels record: each one's last
+# cut of its first kernel (every cut's time is printed in phase 9)
+RECORD_CUT = {"K6": ("K1", "conv2"), "K7": ("K4", "taps")}
 INT8_PSNR = 38.0     # butterfly x2 against the exact tier (tests/test_int8.py)
 # H100 SXM dense peak rates at 700 W (NVIDIA's data sheet)
 PEAK_BF16_FLOPS = 989e12
@@ -157,13 +185,15 @@ def lsb(a: np.ndarray, b: np.ndarray) -> int:
     return int(np.abs(a.astype(int) - b.astype(int)).max())
 
 
-def bound(kernel: str, n: int, h: int, w: int) -> tuple[float, str]:
+def bound(kernel: str, n: int, h: int, w: int,
+          macs_per_pixel: int = MACS_PER_PIXEL) -> tuple[float, str]:
     """Least time (ms) the card could take for the kernel's work on n
-    [h, w] planes, and what sets it: the useful MACs at the tensor-core
-    bf16 rate (two passes for the split forms), the int8 rate (K4) or the
-    f32 FMA rate (K1), or the planes in and out plus the parameters at the
-    memory rate."""
-    macs = MACS_PER_PIXEL * n * h * w
+    [h, w] planes, and what sets it: the useful MACs (``macs_per_pixel``:
+    all of them, or the stages a cut keeps) at the tensor-core bf16 rate
+    (two passes for the split forms), the int8 rate (K4) or the f32 FMA
+    rate (K1), or the planes in and out plus the parameters at the memory
+    rate."""
+    macs = macs_per_pixel * n * h * w
     if kernel == "K1":
         ops_s = 2 * macs / PEAK_F32_FLOPS
     elif kernel == "K4":
@@ -174,6 +204,41 @@ def bound(kernel: str, n: int, h: int, w: int) -> tuple[float, str]:
     bytes_s = (4 * (n * (h + 12) * (w + 12) + n * h * w) + param_bytes) / PEAK_BYTES
     return (1e3 * max(ops_s, bytes_s),
             "operations" if ops_s >= bytes_s else "bytes")
+
+
+def sass_counts(_build) -> dict:
+    """(kernel, stage) -> the count of HMMA / IMMA / FFMA instructions in
+    each cut instance of the profiling libraries, from ``cuobjdump -sass``
+    (the toolkit nvcc came from).  Instances are told apart by their
+    mangled template arguments: ``fused_srcnn_kernel<STAGE>`` (K1),
+    ``fused_srcnn_bf16_kernel<MODE, TW, STAGE>`` (MODE 0 K2, 1 K3, at TW
+    60), ``fused_srcnn_int8_kernel<STAGE>`` (K4)."""
+    from libsrcnn_tpu_torch.kernels import ablation
+
+    stage_of = {code: name for name, code in ablation.STAGE_CODES.items()}
+    counts = {}
+    for lib in ("fused_srcnn_prof", "fused_srcnn_bf16_prof", "fused_srcnn_int8_prof"):
+        sass = subprocess.run([_build.tool("cuobjdump"), "-sass", _build.library_path(lib)],
+                              capture_output=True, text=True, check=True).stdout
+        key = None
+        for line in sass.splitlines():
+            m = re.search(r"Function : \S*?(fused_srcnn(?:_bf16|_int8)?)_kernelI((?:Li\d+E)+)E", line)
+            if m:
+                args = [int(a) for a in re.findall(r"Li(\d+)E", m.group(2))]
+                if m.group(1) == "fused_srcnn_bf16":
+                    mode, tw, stage = args
+                    kernel = {(0, 60): "K2", (1, 60): "K3"}.get((mode, tw))
+                else:
+                    kernel, stage = ("K1" if m.group(1) == "fused_srcnn" else "K4"), args[0]
+                key = None if kernel is None else (kernel, stage_of[stage])
+                if key:
+                    counts[key] = 0
+                continue
+            if "Function :" in line:
+                key = None
+            elif key and re.search(r"\s(HMMA|IMMA|FFMA)[.\s]", line):
+                counts[key] += 1
+    return counts
 
 
 def main() -> int:
@@ -191,7 +256,8 @@ def main() -> int:
     import libsrcnn_tpu_torch as lt
     from libsrcnn_tpu_torch import pipeline
     from libsrcnn_tpu_torch.eval import psnr, ssim
-    from libsrcnn_tpu_torch.kernels import _build, fused_conv
+    from libsrcnn_tpu_torch.kernels import _build, ablation, fused_conv
+    from libsrcnn_tpu_torch.tools import int8_ablation, kernel_ablation, trace_kernel
     from libsrcnn_tpu_torch.models import srcnn, srcnn_int8
 
     dev = torch.device("cuda")
@@ -200,18 +266,29 @@ def main() -> int:
     # --- 2. build ---------------------------------------------------------
     t = time.perf_counter()
     fused_conv.build_all()
-    print(f"build: fused_srcnn.cu + fused_srcnn_bf16.cu + fused_srcnn_int8.cu in "
+    print(f"build: fused_srcnn.cu + fused_srcnn_bf16.cu + fused_srcnn_int8.cu, "
+          f"each also with {' '.join(_build.PROFILING_FLAGS)}, in "
           f"{time.perf_counter() - t:.1f} s ({' '.join(_build.NVCC_FLAGS)})")
     for name, log in _build.build_logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+    # no cut may have lost the work it names: the count of tensor-core and
+    # FMA instructions grows with each stage a cut keeps
+    counts = sass_counts(_build)
+    for kernel, stages in ablation.STAGES.items():
+        seq = [counts.get((kernel, st)) for st in stages]
+        print(f"SASS HMMA/IMMA/FFMA of {kernel}'s cuts: "
+              + ", ".join(f"{st} {c}" for st, c in zip(stages, seq)))
+        check(None not in seq, f"{kernel}: a cut instance is missing from the SASS")
+        check(all(a < b for a, b in zip(seq[:-2], seq[1:-1])) and seq[-1] >= seq[-2],
+              f"{kernel}: a cut's SASS count does not grow with its stages: {seq}")
 
     # --- 3. kernels vs plain versions on the card --------------------------
     params = srcnn.load_params(dev)
     qparams = srcnn_int8.load_params(dev)
     rng = np.random.default_rng(0)
-    max_err = {k: 0.0 for k in KERNELS}
+    max_err = {k: 0.0 for k in list(KERNELS) + list(PROFILING_KERNELS)}
     cases = [((3, 3), None), ((33, 47), None), ((37, 53), None),
              ((130, 250), None), ((2048, 2048), None), ((130, 250), (0, 1, 0, 1)),
              ((130, 250), (0, 0, 0, 0))]
@@ -254,6 +331,46 @@ def main() -> int:
             print(msg)
             check(err <= KERNEL_TOL[name], f"{name} disagrees at {h}x{w}: {err}")
             max_err[name] = max(max_err[name], err)
+        what = f"{'3 planes ' if y.dim() == 3 else ''}{h}x{w} flags={flags or (1, 1, 1, 1)}"
+        # K5 computes K3's pixels in row bands: equal bit for bit
+        for th in (64, fused_conv.BAND_TILE_H):
+            band = fused_conv.forward_y_band(params, y, h, w, flags, tile_h=th)
+            torch.cuda.synchronize()
+            check(torch.equal(band, got["K3"]), f"K5 (tile_h={th}) differs from K3 at {what}")
+        # every stage cut against its plain version; full is the kernel
+        scaled_max = {}
+        for kernel, stages in ablation.STAGES.items():
+            p = qparams if kernel == "K4" else params
+            rec = "K7" if kernel == "K4" else "K6"
+            for stage in stages:
+                cut = ablation.forward_y_cut(kernel, stage, p, y, h, w, flags)
+                torch.cuda.synchronize()
+                if stage == "full":
+                    check(torch.equal(cut, got[kernel]),
+                          f"{kernel}'s full cut differs from the kernel at {what}")
+                    continue
+                ref = ablation.forward_y_cut_reference(kernel, stage, p, y, h, w, flags)
+                d = (cut - ref).abs()
+                max_err[rec] = max(max_err[rec], float(d.max()))
+                if kernel == "K4":
+                    check(torch.equal(cut, ref), f"K4's {stage} cut differs from its "
+                          f"plain version at {what}")
+                    continue
+                # the kernel's gate on [0, 255] planes, on the scaled error
+                d = d * 255.0 / max(255.0, float(ref.abs().max()))
+                sm = float(d.max())
+                scaled_max[kernel] = max(scaled_max.get(kernel, 0.0), sm)
+                if kernel == "K3":
+                    p999 = float(torch.quantile(d.flatten()[:1_000_000], 0.999))
+                    check(sm <= KERNEL_TOL["K3"] and p999 <= BF16X1_P999,
+                          f"K3's {stage} cut at {what}: scaled max {sm}, p99.9 {p999}")
+                else:
+                    check(sm <= KERNEL_TOL[kernel], f"{kernel}'s {stage} cut at {what}: "
+                          f"scaled max {sm}")
+        print(f"{what}: K5 == K3 at tile_h 64 and {fused_conv.BAND_TILE_H}; cuts vs "
+              f"plain, scaled max error "
+              + ", ".join(f"{k} {v:.3g}" for k, v in scaled_max.items())
+              + "; K4's cuts bit-equal; every full cut == its kernel")
         if y.dim() == 3:
             for name, (mode, _, _) in KERNELS.items():
                 for i in range(y.shape[0]):
@@ -264,6 +381,7 @@ def main() -> int:
                           f"{name}: batched launch differs from plane {i}")
             print("batched launch of 3 planes == 3 single launches, every kernel")
     max_err["K3n"] = max_err["K3"]      # equal to K3 on every case above
+    max_err["K5"] = max_err["K3"]       # likewise, and its plain version is K3's
     torch.cuda.synchronize()
 
     # --- 4. the main path, exact tier ---------------------------------------
@@ -591,7 +709,28 @@ def main() -> int:
         lib_int8_why = str(e).strip().splitlines()[0]
         print(f"timing on {card}: torch._int_mm yardstick for K4: — ({lib_int8_why})")
     library_ms = {"K1": lib["f32"], "K2": lib["f32"], "K3h": lib["f32"],
-                  "K3": lib["bf16"], "K3n": lib["bf16"], "K4": lib_int8}
+                  "K3": lib["bf16"], "K3n": lib["bf16"], "K4": lib_int8,
+                  "K5": lib["bf16"], "K6": None, "K7": None}
+
+    # K5 beside K3 (the same work in row bands), in turns on one card
+    th = fused_conv.BAND_TILE_H
+    band_t = timed({"K3": lambda: fused_conv.launch("K3", packed, y, y_out),
+                    "K5 64": lambda: fused_conv.launch("K5", packed, y, y_out, tile_h=64),
+                    f"K5 {th}": lambda: fused_conv.launch("K5", packed, y, y_out, tile_h=th),
+                    "plain": lambda: fused_conv.forward_y_band_reference(
+                        params, y, 2048, 2048, tile_h=th)})
+    kern_ms["K5"], plain_ms["K5"] = band_t[f"K5 {th}"], band_t["plain"]
+    print(f"timing on {card}, median of 10: 2048^2 K5 (row bands) at tile_h 64 "
+          f"{band_t['K5 64']:.3f} ms, at tile_h {th} {band_t[f'K5 {th}']:.3f} ms; K3 "
+          f"{band_t['K3']:.3f} ms; its plain version (K3's) {band_t['plain']:.3f} ms; "
+          f"cuDNN bf16 stack {lib['bf16']:.3f} ms")
+    # the plain versions of the cuts that stand for K6 and K7
+    for rec, (kernel, stage) in RECORD_CUT.items():
+        p = qparams if kernel == "K4" else params
+        plain_ms[rec] = timed({"plain": lambda: ablation.forward_y_cut_reference(
+            kernel, stage, p, y, 2048, 2048)})["plain"]
+        print(f"timing on {card}, median of 10: 2048^2 plain version of {kernel}'s "
+              f"{stage} cut ({rec}) {plain_ms[rec]:.3f} ms")
 
     img = torch.tensor(frames[1], device=dev)
     tiers = ("float32", "bfloat16", "bfloat16_fast", "int8")
@@ -623,21 +762,59 @@ def main() -> int:
           f"{parts['download'] / 4:.3f} ms (pageable host memory, median of 6)")
     print(f"timing on {card}: frame pass float32 plain path "
           f"{frame_ms['float32 plain']:.3f} ms (median of 10)")
+
+    # --- 9. the kernel-profiling path: K5, K6, K7 ---------------------------
+    # the port's own tools, as a user runs them, with the counts at 0
+    reset_counts()
+    tables = {kernel: kernel_ablation.main(["2048", "--mode", mode])
+              for mode, kernel in kernel_ablation.MODES.items()}
+    tables["K4"] = int8_ablation.main(["2048"])
+    trace_dir = os.path.join(_build.BUILD_DIR, "traces")    # git-ignored
+    for mode, th in (("bf16x1band", 64), ("bf16x1bandf", fused_conv.BAND_TILE_H)):
+        trace_kernel.main(["--mode", mode, "--th", str(th), "--logdir",
+                           os.path.join(trace_dir, f"{mode}_{th}")])
+    torch.cuda.synchronize()
+    for rec in PROFILING_KERNELS:
+        launches[rec] = fused_conv.launches_by[rec]
+        check(launches[rec] > 0, f"the profiling path launched {rec} no time: "
+              f"{dict(fused_conv.launches_by)}")
+    print(f"profiling path: {launches['K5']} K5, {launches['K6']} K6 and "
+          f"{launches['K7']} K7 launches ({dict(fused_conv.launches_by)})")
+    for kernel, rows in tables.items():
+        print(f"{kernel} cuts' bounds at 2048^2: " + ", ".join(
+            "{} {:.4f} ms ({})".format(r["stage"], *bound(
+                kernel, 1, 2048, 2048, ablation.STAGE_MACS[r["stage"]]))
+            for r in rows if r["stage"] != "production"))
+    for rec, (kernel, stage) in RECORD_CUT.items():
+        kern_ms[rec] = next(r["ms"] for r in tables[kernel] if r["stage"] == stage)
     print(f"chip_smoke ran in {time.perf_counter() - t_start:.1f} s")
 
     check("jax" not in sys.modules and "libsrcnn_tpu" not in sys.modules,
           "the port imported jax or the JAX package")
     records = []
-    for name, (_, src, replaces) in KERNELS.items():
-        bms, by = bound(name, 1, 2048, 2048)
-        records.append({
+    sources = {k: (src, rep) for k, (_, src, rep) in KERNELS.items()} | PROFILING_KERNELS
+    for name, (src, replaces) in sources.items():
+        if name in RECORD_CUT:
+            kernel, stage = RECORD_CUT[name]
+            bms, by = bound(kernel, 1, 2048, 2048, ablation.STAGE_MACS[stage])
+        else:
+            bms, by = bound("K3" if name == "K5" else name, 1, 2048, 2048)
+        record = {
             "name": name, "route": "cuda",
             "source": f"libsrcnn_tpu_torch/kernels/csrc/{src}",
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": max_err[name], "ms": kern_ms[name],
             "plain_ms": plain_ms[name], "bound_ms": bms, "bound_by": by,
             "library_ms": library_ms[name],
-        })
+        }
+        if name in RECORD_CUT:
+            # the record's numbers are this cut's; every cut's time is here
+            kernel, stage = RECORD_CUT[name]
+            record["cut"] = f"{kernel} {stage}"
+            record["stage_ms"] = {k: {r["stage"]: r["ms"] for r in rows}
+                                  for k, rows in tables.items()
+                                  if (k == "K4") == (name == "K7")}
+        records.append(record)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

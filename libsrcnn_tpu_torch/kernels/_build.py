@@ -9,6 +9,11 @@ carries a hash of every source under ``csrc/`` (the ``.cu`` files and the
 header rebuilds and a stale library is never loaded.  :func:`build` starts
 one nvcc per missing library, all at once.  Nothing here runs at import
 time.
+
+A library named ``<name>_prof`` is ``csrc/<name>.cu`` built a second time
+with ``-DSRCNN_PROFILING``: the kernel-profiling path (K5 and the stage
+cuts K6 / K7), kept out of the main path's libraries so that their
+first-use build does not grow.
 """
 
 from __future__ import annotations
@@ -30,6 +35,10 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+#: name suffix of a profiling library, and the define that makes one
+PROFILING = "_prof"
+PROFILING_FLAGS = ("-DSRCNN_PROFILING",)
+
 #: ptxas / nvcc output of each library built in this process, by name
 build_logs: dict[str, str] = {}
 
@@ -50,6 +59,18 @@ def nvcc() -> str:
                        "machine with the CUDA toolkit (set CUDA_HOME)")
 
 
+def tool(name: str) -> str:
+    """Path of a CUDA toolkit program (e.g. ``cuobjdump``) beside nvcc."""
+    return os.path.join(os.path.dirname(nvcc()), name)
+
+
+def _source_and_flags(name: str) -> tuple[str, tuple[str, ...]]:
+    """The ``csrc`` source of library ``name`` and its nvcc flags."""
+    if name.endswith(PROFILING):
+        return name[:-len(PROFILING)] + ".cu", NVCC_FLAGS + PROFILING_FLAGS
+    return name + ".cu", NVCC_FLAGS
+
+
 def sources() -> list[str]:
     """Every file under ``csrc/`` that a build can read, in a fixed order."""
     return sorted(glob.glob(os.path.join(CSRC, "*.cu")) +
@@ -57,7 +78,7 @@ def sources() -> list[str]:
 
 
 def library_path(name: str) -> str:
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(_source_and_flags(name)[1]).encode())
     digest.update(name.encode())
     for src in sources():
         digest.update(os.path.basename(src).encode())
@@ -67,8 +88,9 @@ def library_path(name: str) -> str:
 
 
 def build(*names: str) -> None:
-    """Build ``csrc/<name>.cu`` for each name whose library is missing, one
-    nvcc process per library, all started together."""
+    """Build the library of each name whose library is missing (see the
+    module's docstring), one nvcc process per library, all started
+    together."""
     todo = [n for n in names if not os.path.exists(library_path(n))]
     if not todo:
         return
@@ -80,8 +102,8 @@ def build(*names: str) -> None:
             # an interrupted one never leaves a half-written library
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
             os.close(fd)
-            cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp,
-                   os.path.join(CSRC, f"{name}.cu")]
+            src, flags = _source_and_flags(name)
+            cmd = [nvcc(), *flags, "-o", tmp, os.path.join(CSRC, src)]
             jobs.append((name, tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
@@ -90,7 +112,7 @@ def build(*names: str) -> None:
             out, _ = proc.communicate()
             build_logs[name] = out
             if proc.returncode != 0:
-                failed.append(f"nvcc failed for {name}.cu:\n{out}")
+                failed.append(f"nvcc failed for {name}:\n{out}")
             else:
                 os.replace(tmp, library_path(name))
         if failed:
@@ -106,6 +128,6 @@ def build(*names: str) -> None:
 
 @functools.lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
-    """Build ``csrc/<name>.cu`` if its library is missing, then load it."""
+    """Build library ``name`` if it is missing, then load it."""
     build(name)
     return ctypes.CDLL(library_path(name))

@@ -46,6 +46,14 @@
 // * Ragged tiles clamp their window reads into the plane and mask their
 //   output stores; offsets into the planes are 64-bit.
 //
+// * Profiling cuts (K6 of kernels/ablation.py, built only with
+//   -DSRCNN_PROFILING): the STAGE template argument stops the kernel after
+//   its window and weights are in shared memory (LOAD), after conv1 (CONV1)
+//   or after conv2 (CONV2); srcnn_common.cuh says what a cut writes.  The
+//   TPU tool's dma / roll / im2col stages have no counterpart here: there
+//   is no lane rotate, and conv1 reads its taps straight from the window.
+//   The production kernel is the FULL instance.
+//
 // Later work: 3xTF32 split products on wgmma, TMA windows, a persistent
 // grid.
 
@@ -78,6 +86,7 @@ constexpr size_t SMEM_BYTES =
     (SM_WIN + SM_W1 + SM_W2 + SM_H1 + SM_C2 + SM_RESTP) *
     sizeof(float);                                            // 204,816
 
+template <int STAGE = FULL>
 __global__ void __launch_bounds__(NT, 1)
 fused_srcnn_kernel(const float* __restrict__ y,
                    const float* __restrict__ params,
@@ -126,6 +135,14 @@ fused_srcnn_kernel(const float* __restrict__ y,
   }
   __syncthreads();
 
+  if constexpr (STAGE == LOAD) {          // cut: the centre tap
+    for (int s = t; s < TH * TW; s += NT) {
+      const int a = s / TW + 2, b = s % TW + 2;
+      cut_store(out, a, b, r0, q0, TH, TW, h, w, win[(a + 4) * WW + b + 4]);
+    }
+    return;
+  }
+
   const int g = t % 8;                    // channel group: channels g + 8 i
   const int pg = t / 8;                   // positions 4 pg .. 4 pg + 3 of a chunk
   for (int ch = 0; ch < M / CHUNK; ++ch) {
@@ -168,6 +185,17 @@ fused_srcnn_kernel(const float* __restrict__ y,
     }
     __syncthreads();
 
+    if constexpr (STAGE == CONV1) {       // cut: sum of the 64 h1 channels
+      for (int p = t; p < CHUNK; p += NT) {
+        float v = 0.f;
+        for (int c = 0; c < C1; ++c) v += h1s[c * H1S + p];
+        const int pos = ch * CHUNK + p;
+        cut_store(out, pos / RW, pos % RW, r0, q0, TH, TW, h, w, v);
+      }
+      __syncthreads();                    // h1s is rewritten by the next chunk
+      continue;
+    }
+
     // ---- conv2: 4 positions x 4 channels per thread ----
     float a2[4][4];
 #pragma unroll
@@ -195,6 +223,17 @@ fused_srcnn_kernel(const float* __restrict__ y,
       *reinterpret_cast<float4*>(c2s + c * C2S + ch * CHUNK + 4 * pg) = v;
     }
     __syncthreads();                      // h1s is rewritten by the next chunk
+  }
+
+  if constexpr (STAGE == CONV1) return;
+  if constexpr (STAGE == CONV2) {         // cut: sum of the 32 c2 channels
+    for (int s = t; s < TH * TW; s += NT) {
+      const int a = s / TW + 2, b = s % TW + 2;
+      float v = 0.f;
+      for (int c = 0; c < C2; ++c) v += c2s[c * C2S + a * RW + b];
+      cut_store(out, a, b, r0, q0, TH, TW, h, w, v);
+    }
+    return;
   }
 
   // ---- border clamp on the ring: global c2 rows r0-2 .. r0+RH-3 ----
@@ -233,6 +272,20 @@ fused_srcnn_kernel(const float* __restrict__ y,
   }
 }
 
+template <int STAGE>
+cudaError_t launch(const float* y, float* out, const float* params, int n,
+                   int h, int w, int f_top, int f_bottom, int f_left,
+                   int f_right, cudaStream_t stream) {
+  cudaError_t e = cudaFuncSetAttribute(
+      fused_srcnn_kernel<STAGE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)SMEM_BYTES);
+  if (e != cudaSuccess) return e;
+  dim3 grid((w + TW - 1) / TW, (h + TH - 1) / TH, n);
+  fused_srcnn_kernel<STAGE><<<grid, NT, SMEM_BYTES, stream>>>(
+      y, params, out, h, w, f_top, f_bottom, f_left, f_right);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -248,15 +301,35 @@ int srcnn_fused_max_rows() { return 65535 * TH; }
 int srcnn_fused_forward(const float* y, float* out, const float* params,
                         int n, int h, int w, int f_top, int f_bottom,
                         int f_left, int f_right, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e = cudaFuncSetAttribute(
-      fused_srcnn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)SMEM_BYTES);
-  if (e != cudaSuccess) return e;
-  dim3 grid((w + TW - 1) / TW, (h + TH - 1) / TH, n);
-  fused_srcnn_kernel<<<grid, NT, SMEM_BYTES, s>>>(
-      y, params, out, h, w, f_top, f_bottom, f_left, f_right);
-  return cudaGetLastError();
+  return launch<FULL>(y, out, params, n, h, w, f_top, f_bottom, f_left,
+                      f_right, static_cast<cudaStream_t>(stream));
 }
+
+#ifdef SRCNN_PROFILING
+// The profiling cuts of K1 (kernels/ablation.py): as srcnn_fused_forward,
+// stopped after `stage` (LOAD, CONV1, CONV2 or FULL).
+int srcnn_fused_cut_forward(const float* y, float* out, const float* params,
+                            int n, int h, int w, int f_top, int f_bottom,
+                            int f_left, int f_right, int stage,
+                            void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (stage) {
+    case LOAD:
+      return launch<LOAD>(y, out, params, n, h, w, f_top, f_bottom, f_left,
+                          f_right, s);
+    case CONV1:
+      return launch<CONV1>(y, out, params, n, h, w, f_top, f_bottom, f_left,
+                           f_right, s);
+    case CONV2:
+      return launch<CONV2>(y, out, params, n, h, w, f_top, f_bottom, f_left,
+                           f_right, s);
+    case FULL:
+      return launch<FULL>(y, out, params, n, h, w, f_top, f_bottom, f_left,
+                          f_right, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+#endif  // SRCNN_PROFILING
 
 }  // extern "C"

@@ -55,8 +55,21 @@
 //   pixel sits in its tile: that is what makes K3n bit-identical to K3.
 // * Every parameter comes in through `params`; nothing outlives a launch.
 //
+// Built with -DSRCNN_PROFILING (a second library, the kernel-profiling
+// path of kernels/ablation.py and fused_conv.forward_y_band), the file
+// also holds:
+// * K5, the row-band geometry (fused_srcnn_band_kernel), replacing
+//   fused_conv.py::_kernel_band / _pair_tile (:491-597): K3's per-tile
+//   work, one block per band of rows (see the kernel).
+// * K6's cuts of K2 and K3: the STAGE template argument stops the kernel
+//   after its window and B fragments are in shared memory (LOAD), after
+//   conv1, conv2 or the tap GEMM (TAPS); srcnn_common.cuh says what a cut
+//   writes.  The TPU tool's roll and im2col stages have no counterpart:
+//   there is no lane rotate, and conv1's im2col is done in registers.
+//   The production kernels are the FULL instances.
+//
 // Later work: wgmma with the window in shared memory as its B operand, TMA,
-// a persistent grid, two blocks per SM.
+// two blocks per SM.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -133,54 +146,15 @@ __device__ __forceinline__ int tap_offset(int tap) {
   return (tap / 9) * WW + tap % 9;
 }
 
-template <int MODE, int TW>
-__global__ void __launch_bounds__(NT, 1)
-fused_srcnn_bf16_kernel(const float* __restrict__ y,
-                        const float* __restrict__ params,
-                        float* __restrict__ out, int h, int w, int f_top,
-                        int f_bottom, int f_left, int f_right) {
-  using G = Geo<MODE, TW>;
-  constexpr int RW = G::RW, WW = G::WW, WH = G::WH, GS = G::GS;
-  constexpr int KS1 = G::KS1;
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* gs = reinterpret_cast<float*>(smem);                // [25][GS]
-  uint2* w1f = reinterpret_cast<uint2*>(smem + G::B_G);      // [KS1][8][32]
-  uint2* w2f = w1f + KS1 * 8 * 32;                           // [4][4][32]
-  uint2* w3f = w2f + 4 * 4 * 32;                             // [2][4][32]
-  float* b1s = reinterpret_cast<float*>(w3f + 2 * 4 * 32);
+// B fragments of the three GEMMs and the biases, into shared memory.
+// Lane (g, q) of (k-step s, n-tile j) holds rows 16s + 2q + {0, 1} and
+// 16s + 2q + {8, 9} of column 8j + g.
+template <int MODE, int KS1>
+__device__ __forceinline__ void stage_params(const float* __restrict__ params,
+                                             uint2* w1f, uint2* w2f,
+                                             uint2* w3f, float* b1s, int t) {
   float* b2s = b1s + C1;
   float* b3s = b2s + C2;
-  unsigned char* winb = reinterpret_cast<unsigned char*>(b1s) + G::B_BIAS;
-  uint16_t* winh = reinterpret_cast<uint16_t*>(winb);       // bf16 hi
-  uint16_t* winl = winh + WH * WW;                          // bf16 lo (K2)
-  uint32_t* winp = reinterpret_cast<uint32_t*>(winb);       // hi | lo << 16 (K3h)
-
-  const int t = threadIdx.x;
-  const int r0 = blockIdx.y * TH;         // tile origin, output coordinates
-  const int q0 = blockIdx.x * TW;
-  const int ph = h + 2 * HALO, pw = w + 2 * HALO;
-  y += (long long)blockIdx.z * ph * pw;   // this block's plane
-  out += (long long)blockIdx.z * h * w;
-
-  // Window = padded rows r0 .. r0+WH-1, cols q0 .. q0+WW-1, rounded once.
-  // Reads past the plane (ragged tiles) are clamped in; they feed only
-  // masked outputs.
-  for (int i = t; i < WH * WW; i += NT) {
-    const int pr = min(r0 + i / WW, ph - 1);
-    const int pc = min(q0 + i % WW, pw - 1);
-    const float v = y[(long long)pr * pw + pc];
-    const float hi = bf16_round(v);
-    if (MODE == BF16X1) {
-      winh[i] = bf16_bits(v);
-    } else if (MODE == SPLIT) {
-      winh[i] = bf16_bits(v);
-      winl[i] = bf16_bits(v - hi);
-    } else {
-      winp[i] = bf16_bits(v) | (bf16_bits(v - hi) << 16);
-    }
-  }
-  // B fragments: lane (g, q) of (k-step s, n-tile j) holds rows
-  // 16s + 2q + {0, 1} and 16s + 2q + {8, 9} of column 8j + g
   for (int i = t; i < KS1 * 8 * 32; i += NT) {
     const int l = i % 32, j = (i / 32) % 8, s = i / 256;
     const int n = 8 * j + l / 4, k = 16 * s + 2 * (l % 4);
@@ -208,8 +182,21 @@ fused_srcnn_bf16_kernel(const float* __restrict__ y,
   for (int i = t; i < C1 + C2; i += NT)
     b1s[i] = i < C1 ? params[OFF_B1 + i] : params[OFF_B2 + i - C1];
   if (t == 0) b3s[0] = params[OFF_B3];
-  __syncthreads();
+}
 
+// conv1, conv2 and the tap GEMM over the tile's c2 ring, from the window in
+// shared memory: the 25 tap planes into gs.  A cut (STAGE < FULL) writes
+// its per-pixel value to `out` instead and leaves gs alone.
+template <int MODE, int TW, int STAGE>
+__device__ __forceinline__ void ring_gemms(
+    const uint16_t* winh, const uint16_t* winl, const uint32_t* winp,
+    const uint2* w1f, const uint2* w2f, const uint2* w3f, const float* b1s,
+    float* gs, float* __restrict__ out, int r0, int q0, int h, int w,
+    int t) {
+  using G = Geo<MODE, TW>;
+  constexpr int RW = G::RW, WW = G::WW, GS = G::GS;
+  constexpr int KS1 = G::KS1;
+  const float* b2s = b1s + C1;
   const int warp = t / 32, lane = t % 32;
   const int g = lane / 4, q = lane % 4;   // mma fragment row group, column pair
 
@@ -289,6 +276,19 @@ fused_srcnn_bf16_kernel(const float* __restrict__ y,
       // ---- h1 = ReLU(conv1 + b1) -> conv2's A fragments, in registers:
       // n-tiles 2s and 2s+1 of conv1 are k-step s of conv2 ----
       uint32_t ah[4][4], al[4][4];
+      float cut0 = 0.f, cut8 = 0.f;       // a cut's sums of rows g, g + 8
+      // a cut's store: row g of this m-tile is at ring position pos, row
+      // g + 8 eight columns to its right
+      const auto store_cut = [&](float v0, float v8) {
+        v0 = quad_sum(v0);
+        v8 = quad_sum(v8);
+        const int mt = mt0 + u;
+        const int pos = (mt / SEG) * RW + (mt % SEG) * 16 + g;
+        if (q == 0) {
+          cut_store(out, pos / RW, pos % RW, r0, q0, TH, TW, h, w, v0);
+          cut_store(out, pos / RW, pos % RW + 8, r0, q0, TH, TW, h, w, v8);
+        }
+      };
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int c = 8 * j + 2 * q;
@@ -296,6 +296,11 @@ fused_srcnn_bf16_kernel(const float* __restrict__ y,
         const float v1 = fmaxf(acc[u][j][1] + b1s[c + 1], 0.f);
         const float v2 = fmaxf(acc[u][j][2] + b1s[c], 0.f);
         const float v3 = fmaxf(acc[u][j][3] + b1s[c + 1], 0.f);
+        if constexpr (STAGE == CONV1) {
+          cut0 += v0 + v1;
+          cut8 += v2 + v3;
+          continue;
+        }
         const int s = j / 2, r = 2 * (j % 2);
         ah[s][r] = pack_bf16(v0, v1);
         ah[s][r + 1] = pack_bf16(v2, v3);
@@ -303,6 +308,10 @@ fused_srcnn_bf16_kernel(const float* __restrict__ y,
           al[s][r] = pack_bf16(v0 - bf16_round(v0), v1 - bf16_round(v1));
           al[s][r + 1] = pack_bf16(v2 - bf16_round(v2), v3 - bf16_round(v3));
         }
+      }
+      if constexpr (STAGE == CONV1) {     // cut: sum of the 64 h1 channels
+        store_cut(cut0, cut8);
+        continue;
       }
 
       // ---- conv2: [16 x 64] x [64 x 32] ----
@@ -333,6 +342,11 @@ fused_srcnn_bf16_kernel(const float* __restrict__ y,
         const float v1 = fmaxf(a2[j][1] + b2s[c + 1], 0.f);
         const float v2 = fmaxf(a2[j][2] + b2s[c], 0.f);
         const float v3 = fmaxf(a2[j][3] + b2s[c + 1], 0.f);
+        if constexpr (STAGE == CONV2) {
+          cut0 += v0 + v1;
+          cut8 += v2 + v3;
+          continue;
+        }
         const int s = j / 2, r = 2 * (j % 2);
         ch[s][r] = pack_bf16(v0, v1);
         ch[s][r + 1] = pack_bf16(v2, v3);
@@ -340,6 +354,10 @@ fused_srcnn_bf16_kernel(const float* __restrict__ y,
           cl[s][r] = pack_bf16(v0 - bf16_round(v0), v1 - bf16_round(v1));
           cl[s][r + 1] = pack_bf16(v2 - bf16_round(v2), v3 - bf16_round(v3));
         }
+      }
+      if constexpr (STAGE == CONV2) {     // cut: sum of the 32 c2 channels
+        store_cut(cut0, cut8);
+        continue;
       }
 
       // ---- conv3's tap products: [16 x 32] x [32 x 25 (32)] ----
@@ -361,6 +379,23 @@ fused_srcnn_bf16_kernel(const float* __restrict__ y,
               mma_bf16(g3[j], cl[s], bf);
           }
 
+      if constexpr (STAGE == TAPS) {      // cut: sum of the 25 taps
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int k = 8 * j + 2 * q;
+          if (k < 25) {
+            cut0 += g3[j][0];
+            cut8 += g3[j][2];
+          }
+          if (k + 1 < 25) {
+            cut0 += g3[j][1];
+            cut8 += g3[j][3];
+          }
+        }
+        store_cut(cut0, cut8);
+        continue;
+      }
+
       // ---- the 25 tap planes -> shared memory ----
       const int mt = mt0 + u;
       const int pos = (mt / SEG) * RW + (mt % SEG) * 16 + g;
@@ -378,14 +413,16 @@ fused_srcnn_bf16_kernel(const float* __restrict__ y,
       }
     }
   }
-  __syncthreads();
+}
 
-  // ---- border clamp on the ring's tap planes: global c2 rows r0-2 ..
-  // r0+RH-3 ----
-  ring_clamp<G::RH, RW, NT, 25>(gs, GS, r0, q0, h, w, f_top, f_bottom,
-                                f_left, f_right);
-
-  // ---- conv3: shift-add of the tap planes, + b3, clamp ----
+// conv3: shift-add of the (clamped) tap planes, + b3, clamp; output rows
+// r0 .. below `h_end` and columns below w
+template <int TW>
+__device__ __forceinline__ void conv3_out(const float* gs, const float* b3s,
+                                          float* __restrict__ out, int r0,
+                                          int q0, int h_end, int w, int t) {
+  using G = Geo<BF16X1, TW>;              // the ring's shape is MODE's-free
+  constexpr int RW = G::RW, GS = G::GS;
   for (int s = t; s < TH * TW; s += NT) {
     const int ty = s / TW, tx = s % TW;
     const float* gp = gs + ty * RW + tx;
@@ -395,22 +432,161 @@ fused_srcnn_bf16_kernel(const float* __restrict__ y,
 #pragma unroll
       for (int dx = 0; dx < 5; ++dx) o += gp[(dy * 5 + dx) * GS + dy * RW + dx];
     const int orow = r0 + ty, ocol = q0 + tx;
-    if (orow < h && ocol < w)
+    if (orow < h_end && ocol < w)
       out[(long long)orow * w + ocol] = fminf(fmaxf(o + b3s[0], 0.f), 255.f);
   }
 }
 
-template <int MODE, int TW>
+template <int MODE, int TW, int STAGE = FULL>
+__global__ void __launch_bounds__(NT, 1)
+fused_srcnn_bf16_kernel(const float* __restrict__ y,
+                        const float* __restrict__ params,
+                        float* __restrict__ out, int h, int w, int f_top,
+                        int f_bottom, int f_left, int f_right) {
+  using G = Geo<MODE, TW>;
+  constexpr int WW = G::WW, WH = G::WH, GS = G::GS;
+  constexpr int KS1 = G::KS1;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* gs = reinterpret_cast<float*>(smem);                // [25][GS]
+  uint2* w1f = reinterpret_cast<uint2*>(smem + G::B_G);      // [KS1][8][32]
+  uint2* w2f = w1f + KS1 * 8 * 32;                           // [4][4][32]
+  uint2* w3f = w2f + 4 * 4 * 32;                             // [2][4][32]
+  float* b1s = reinterpret_cast<float*>(w3f + 2 * 4 * 32);
+  float* b3s = b1s + C1 + C2;
+  unsigned char* winb = reinterpret_cast<unsigned char*>(b1s) + G::B_BIAS;
+  uint16_t* winh = reinterpret_cast<uint16_t*>(winb);       // bf16 hi
+  uint16_t* winl = winh + WH * WW;                          // bf16 lo (K2)
+  uint32_t* winp = reinterpret_cast<uint32_t*>(winb);       // hi | lo << 16 (K3h)
+
+  const int t = threadIdx.x;
+  const int r0 = blockIdx.y * TH;         // tile origin, output coordinates
+  const int q0 = blockIdx.x * TW;
+  const int ph = h + 2 * HALO, pw = w + 2 * HALO;
+  y += (long long)blockIdx.z * ph * pw;   // this block's plane
+  out += (long long)blockIdx.z * h * w;
+
+  // Window = padded rows r0 .. r0+WH-1, cols q0 .. q0+WW-1, rounded once.
+  // Reads past the plane (ragged tiles) are clamped in; they feed only
+  // masked outputs.
+  for (int i = t; i < WH * WW; i += NT) {
+    const int pr = min(r0 + i / WW, ph - 1);
+    const int pc = min(q0 + i % WW, pw - 1);
+    const float v = y[(long long)pr * pw + pc];
+    const float hi = bf16_round(v);
+    if (MODE == BF16X1) {
+      winh[i] = bf16_bits(v);
+    } else if (MODE == SPLIT) {
+      winh[i] = bf16_bits(v);
+      winl[i] = bf16_bits(v - hi);
+    } else {
+      winp[i] = bf16_bits(v) | (bf16_bits(v - hi) << 16);
+    }
+  }
+  stage_params<MODE, KS1>(params, w1f, w2f, w3f, b1s, t);
+  __syncthreads();
+
+  if constexpr (STAGE == LOAD) {          // cut: the centre tap as rounded
+    static_assert(MODE != HILO, "K3h has no cuts");
+    for (int s = t; s < TH * TW; s += NT) {
+      const int a = s / TW + 2, b = s % TW + 2;
+      const int i = (a + 4) * WW + b + 4;
+      float v = __bfloat162float(__ushort_as_bfloat16(winh[i]));
+      if (MODE == SPLIT) v += __bfloat162float(__ushort_as_bfloat16(winl[i]));
+      cut_store(out, a, b, r0, q0, TH, TW, h, w, v);
+    }
+    return;
+  }
+
+  ring_gemms<MODE, TW, STAGE>(winh, winl, winp, w1f, w2f, w3f, b1s, gs, out,
+                              r0, q0, h, w, t);
+  if constexpr (STAGE != FULL) return;
+  __syncthreads();
+
+  // ---- border clamp on the ring's tap planes: global c2 rows r0-2 ..
+  // r0+RH-3 ----
+  ring_clamp<G::RH, G::RW, NT, 25>(gs, GS, r0, q0, h, w, f_top, f_bottom,
+                                   f_left, f_right);
+
+  conv3_out<TW>(gs, b3s, out, r0, q0, h, w, t);
+}
+
+#ifdef SRCNN_PROFILING
+// K5, the row-band launch geometry of K3: one block per band of `tile_h`
+// output rows, which it covers with 12-row tiles (the last one cut at the
+// band's end) and walks each tile row's column tiles left to right.  The B
+// fragments and biases are staged once per band.  The window is a rolling
+// one: of a column tile's 24 x 72 window, the 12 columns it shares with
+// the tile before are moved along in shared memory, and only the 60 new
+// ones are read and rounded.  Every pixel runs K3's arithmetic in K3's
+// order (ring_gemms, conv3_out), so the output equals K3's bit for bit.
+__global__ void __launch_bounds__(NT, 1)
+fused_srcnn_band_kernel(const float* __restrict__ y,
+                        const float* __restrict__ params,
+                        float* __restrict__ out, int h, int w, int tile_h,
+                        int f_top, int f_bottom, int f_left, int f_right) {
+  constexpr int TW = 60;
+  using G = Geo<BF16X1, TW>;
+  constexpr int WW = G::WW, WH = G::WH, GS = G::GS, KEEP = WW - TW;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* gs = reinterpret_cast<float*>(smem);
+  uint2* w1f = reinterpret_cast<uint2*>(smem + G::B_G);
+  uint2* w2f = w1f + G::KS1 * 8 * 32;
+  uint2* w3f = w2f + 4 * 4 * 32;
+  float* b1s = reinterpret_cast<float*>(w3f + 2 * 4 * 32);
+  float* b3s = b1s + C1 + C2;
+  uint16_t* winh = reinterpret_cast<uint16_t*>(
+      reinterpret_cast<unsigned char*>(b1s) + G::B_BIAS);
+
+  const int t = threadIdx.x;
+  const int band0 = blockIdx.x * tile_h;  // the band's output rows
+  const int band1 = min(band0 + tile_h, h);
+  const int ph = h + 2 * HALO, pw = w + 2 * HALO;
+  y += (long long)blockIdx.z * ph * pw;
+  out += (long long)blockIdx.z * h * w;
+
+  stage_params<BF16X1, G::KS1>(params, w1f, w2f, w3f, b1s, t);
+  for (int r0 = band0; r0 < band1; r0 += TH) {
+    for (int q0 = 0; q0 < w; q0 += TW) {
+      // window columns c0 .. WW-1 are read; 0 .. c0-1 are kept
+      const int c0 = q0 == 0 ? 0 : KEEP;
+      if (c0) {
+        for (int i = t; i < WH * KEEP; i += NT) {
+          const int r = i / KEEP, c = i % KEEP;
+          winh[r * WW + c] = winh[r * WW + TW + c];
+        }
+        __syncthreads();
+      }
+      const int nc = WW - c0;
+      for (int i = t; i < WH * nc; i += NT) {
+        const int r = i / nc, c = c0 + i % nc;
+        const int pr = min(r0 + r, ph - 1), pc = min(q0 + c, pw - 1);
+        winh[r * WW + c] = bf16_bits(y[(long long)pr * pw + pc]);
+      }
+      __syncthreads();
+
+      ring_gemms<BF16X1, TW, FULL>(winh, nullptr, nullptr, w1f, w2f, w3f,
+                                   b1s, gs, out, r0, q0, h, w, t);
+      __syncthreads();
+      ring_clamp<G::RH, G::RW, NT, 25>(gs, GS, r0, q0, h, w, f_top,
+                                       f_bottom, f_left, f_right);
+      conv3_out<TW>(gs, b3s, out, r0, q0, band1, w, t);
+      __syncthreads();                    // gs and the window are rewritten
+    }
+  }
+}
+#endif  // SRCNN_PROFILING
+
+template <int MODE, int TW, int STAGE = FULL>
 cudaError_t launch(const float* y, float* out, const float* params, int n,
                    int h, int w, int f_top, int f_bottom, int f_left,
                    int f_right, cudaStream_t stream) {
   constexpr size_t smem = Geo<MODE, TW>::SMEM;
   cudaError_t e = cudaFuncSetAttribute(
-      fused_srcnn_bf16_kernel<MODE, TW>,
+      fused_srcnn_bf16_kernel<MODE, TW, STAGE>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   dim3 grid((w + TW - 1) / TW, (h + TH - 1) / TH, n);
-  fused_srcnn_bf16_kernel<MODE, TW><<<grid, NT, smem, stream>>>(
+  fused_srcnn_bf16_kernel<MODE, TW, STAGE><<<grid, NT, smem, stream>>>(
       y, params, out, h, w, f_top, f_bottom, f_left, f_right);
   return cudaGetLastError();
 }
@@ -449,5 +625,55 @@ int srcnn_bf16_forward(const float* y, float* out, const float* params,
       return cudaErrorInvalidValue;
   }
 }
+
+#ifdef SRCNN_PROFILING
+// The profiling cuts of K2 (kernel 0) and K3 (kernel 1): as
+// srcnn_bf16_forward, stopped after `stage` (LOAD, CONV1, CONV2, TAPS or
+// FULL).
+int srcnn_bf16_cut_forward(const float* y, float* out, const float* params,
+                           int n, int h, int w, int f_top, int f_bottom,
+                           int f_left, int f_right, int kernel, int stage,
+                           void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define SRCNN_CUT(M, S)                                                   \
+  case S:                                                                 \
+    return launch<M, 60, S>(y, out, params, n, h, w, f_top, f_bottom,     \
+                            f_left, f_right, s);
+#define SRCNN_CUTS(M)                                                     \
+  switch (stage) {                                                        \
+    SRCNN_CUT(M, LOAD)                                                    \
+    SRCNN_CUT(M, CONV1)                                                   \
+    SRCNN_CUT(M, CONV2)                                                   \
+    SRCNN_CUT(M, TAPS)                                                    \
+    SRCNN_CUT(M, FULL)                                                    \
+    default:                                                              \
+      return cudaErrorInvalidValue;                                       \
+  }
+  if (kernel == 0) SRCNN_CUTS(SPLIT)
+  if (kernel == 1) SRCNN_CUTS(BF16X1)
+#undef SRCNN_CUTS
+#undef SRCNN_CUT
+  return cudaErrorInvalidValue;
+}
+
+// K5: y, out, params as srcnn_bf16_forward; tile_h >= 1 output rows per
+// band, one block per band and plane.
+int srcnn_bf16_band_forward(const float* y, float* out, const float* params,
+                            int n, int h, int w, int f_top, int f_bottom,
+                            int f_left, int f_right, int tile_h,
+                            void* stream) {
+  if (tile_h < 1) return cudaErrorInvalidValue;
+  constexpr size_t smem = Geo<BF16X1, 60>::SMEM;
+  cudaError_t e = cudaFuncSetAttribute(
+      fused_srcnn_band_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return e;
+  dim3 grid((h + tile_h - 1) / tile_h, 1, n);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  fused_srcnn_band_kernel<<<grid, NT, smem, s>>>(
+      y, params, out, h, w, tile_h, f_top, f_bottom, f_left, f_right);
+  return cudaGetLastError();
+}
+#endif  // SRCNN_PROFILING
 
 }  // extern "C"

@@ -58,6 +58,15 @@
 // * Every parameter comes in through `params` (int8 weights and f32
 //   scales in one byte buffer); nothing outlives a launch.
 //
+// * Profiling cuts (K7 of kernels/ablation.py, built only with
+//   -DSRCNN_PROFILING): the STAGE template argument stops the kernel after
+//   the quantized window and the B fragments are in shared memory (LOAD;
+//   the TPU tool's dma, roll, quant and im2col are this one phase here),
+//   after conv1, conv2 or the tap GEMM (TAPS); srcnn_common.cuh says what
+//   a cut writes.  Its values are integer sums, so the cuts equal their
+//   plain versions bit for bit too.  The production kernel is the FULL
+//   instance.
+//
 // Later work: wgmma, conv1's A operand from a shared-memory im2col instead
 // of byte loads, B fragments packed once per parameter set, a persistent
 // grid.
@@ -148,6 +157,7 @@ __device__ __forceinline__ uint32_t gather4(const uint8_t* win, int b,
          (uint32_t(win[b + off[2]]) << 16) | (uint32_t(win[b + off[3]]) << 24);
 }
 
+template <int STAGE = FULL>
 __global__ void __launch_bounds__(NT, 1)
 fused_srcnn_int8_kernel(const float* __restrict__ y,
                         const unsigned char* __restrict__ params,
@@ -224,6 +234,15 @@ fused_srcnn_int8_kernel(const float* __restrict__ y,
   for (int i = t; i < N_SC; i += NT) scs[i] = sc[i];
   __syncthreads();
 
+  if constexpr (STAGE == LOAD) {          // cut: the centre tap's code
+    for (int s = t; s < TH * TW; s += NT) {
+      const int a = s / TW + 2, b = s % TW + 2;
+      cut_store(out, a, b, r0, q0, TH, TW, h, w,
+                static_cast<float>(winq[(a + 4) * WW + b + 4]));
+    }
+    return;
+  }
+
   const float* s1s = scs + SC_S1;
   const float* t1s = scs + SC_T1;
   const float* s2s = scs + SC_S2;
@@ -283,6 +302,35 @@ fused_srcnn_int8_kernel(const float* __restrict__ y,
 
 #pragma unroll
     for (int u = 0; u < MT; ++u) {
+      // a cut's integer sums of fragment rows g and g + 8 (below 2^24, so
+      // exact as f32), and its store: row g of this m-tile is at ring
+      // position pos, row g + 8 eight columns to its right
+      int cut0 = 0, cut8 = 0;
+      const auto store_cut = [&](int v0, int v8) {
+        v0 = quad_sum(v0);
+        v8 = quad_sum(v8);
+        const int mt = mt0 + u;
+        const int pos = (mt / SEG) * RW + (mt % SEG) * 16 + g;
+        if (q == 0) {
+          cut_store(out, pos / RW, pos % RW, r0, q0, TH, TW, h, w,
+                    static_cast<float>(v0));
+          cut_store(out, pos / RW, pos % RW + 8, r0, q0, TH, TW, h, w,
+                    static_cast<float>(v8));
+        }
+      };
+      if constexpr (STAGE == CONV1) {     // cut: sum of the 64 h1q codes
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int c = 8 * j + 2 * q;
+          cut0 += requant(acc[u][j][0], s1s[c], t1s[c]) +
+                  requant(acc[u][j][1], s1s[c + 1], t1s[c + 1]);
+          cut8 += requant(acc[u][j][2], s1s[c], t1s[c]) +
+                  requant(acc[u][j][3], s1s[c + 1], t1s[c + 1]);
+        }
+        store_cut(cut0, cut8);
+        continue;
+      }
+
       // ---- h1q -> conv2's A fragments, in registers: n-tile j of conv1
       // (channels 8j + 2q + {0, 1}) is k-step j/4, half (j/2)%2, byte
       // pair j%2 ----
@@ -310,6 +358,19 @@ fused_srcnn_int8_kernel(const float* __restrict__ y,
         for (int j = 0; j < 4; ++j)
           mma_s8(a2[j], ah[s], w2f[(s * 4 + j) * 32 + lane]);
 
+      if constexpr (STAGE == CONV2) {     // cut: sum of the 32 c2q codes
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int c = 8 * j + 2 * q;
+          cut0 += requant(a2[j][0], s2s[c], t2s[c]) +
+                  requant(a2[j][1], s2s[c + 1], t2s[c + 1]);
+          cut8 += requant(a2[j][2], s2s[c], t2s[c]) +
+                  requant(a2[j][3], s2s[c + 1], t2s[c + 1]);
+        }
+        store_cut(cut0, cut8);
+        continue;
+      }
+
       // ---- c2q -> the tap GEMM's A fragment (the ring clamp acts on the
       // tap planes below) ----
       uint32_t ch[4] = {0u, 0u, 0u, 0u};
@@ -332,6 +393,23 @@ fused_srcnn_int8_kernel(const float* __restrict__ y,
         mma_s8(g3[j], ch, w3f[j * 32 + lane]);
       }
 
+      if constexpr (STAGE == TAPS) {      // cut: sum of the 25 taps
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int k = 8 * j + 2 * q;
+          if (k < 25) {
+            cut0 += g3[j][0];
+            cut8 += g3[j][2];
+          }
+          if (k + 1 < 25) {
+            cut0 += g3[j][1];
+            cut8 += g3[j][3];
+          }
+        }
+        store_cut(cut0, cut8);
+        continue;
+      }
+
       // ---- the 25 tap planes -> shared memory ----
       const int mt = mt0 + u;
       const int pos = (mt / SEG) * RW + (mt % SEG) * 16 + g;
@@ -349,6 +427,7 @@ fused_srcnn_int8_kernel(const float* __restrict__ y,
       }
     }
   }
+  if constexpr (STAGE != FULL) return;
   __syncthreads();
 
   // ---- border clamp on the ring's tap planes: global c2 rows r0-2 ..
@@ -374,6 +453,20 @@ fused_srcnn_int8_kernel(const float* __restrict__ y,
   }
 }
 
+template <int STAGE>
+cudaError_t launch(const float* y, float* out, const unsigned char* params,
+                   int n, int h, int w, int f_top, int f_bottom, int f_left,
+                   int f_right, cudaStream_t stream) {
+  cudaError_t e = cudaFuncSetAttribute(
+      fused_srcnn_int8_kernel<STAGE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
+  if (e != cudaSuccess) return e;
+  dim3 grid((w + TW - 1) / TW, (h + TH - 1) / TH, n);
+  fused_srcnn_int8_kernel<STAGE><<<grid, NT, SMEM, stream>>>(
+      y, params, out, h, w, f_top, f_bottom, f_left, f_right);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -390,15 +483,39 @@ int srcnn_int8_forward(const float* y, float* out,
                        const unsigned char* params, int n, int h, int w,
                        int f_top, int f_bottom, int f_left, int f_right,
                        void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e = cudaFuncSetAttribute(
-      fused_srcnn_int8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)SMEM);
-  if (e != cudaSuccess) return e;
-  dim3 grid((w + TW - 1) / TW, (h + TH - 1) / TH, n);
-  fused_srcnn_int8_kernel<<<grid, NT, SMEM, s>>>(
-      y, params, out, h, w, f_top, f_bottom, f_left, f_right);
-  return cudaGetLastError();
+  return launch<FULL>(y, out, params, n, h, w, f_top, f_bottom, f_left,
+                      f_right, static_cast<cudaStream_t>(stream));
 }
+
+#ifdef SRCNN_PROFILING
+// The profiling cuts of K4 (K7 of kernels/ablation.py): as
+// srcnn_int8_forward, stopped after `stage` (LOAD, CONV1, CONV2, TAPS or
+// FULL).
+int srcnn_int8_cut_forward(const float* y, float* out,
+                           const unsigned char* params, int n, int h, int w,
+                           int f_top, int f_bottom, int f_left, int f_right,
+                           int stage, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (stage) {
+    case LOAD:
+      return launch<LOAD>(y, out, params, n, h, w, f_top, f_bottom, f_left,
+                          f_right, s);
+    case CONV1:
+      return launch<CONV1>(y, out, params, n, h, w, f_top, f_bottom, f_left,
+                           f_right, s);
+    case CONV2:
+      return launch<CONV2>(y, out, params, n, h, w, f_top, f_bottom, f_left,
+                           f_right, s);
+    case TAPS:
+      return launch<TAPS>(y, out, params, n, h, w, f_top, f_bottom, f_left,
+                          f_right, s);
+    case FULL:
+      return launch<FULL>(y, out, params, n, h, w, f_top, f_bottom, f_left,
+                          f_right, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+#endif  // SRCNN_PROFILING
 
 }  // extern "C"

@@ -17,6 +17,36 @@ constexpr int OFF_W3 = OFF_B2 + C2;       // [25][32], tap k = 5*dy + dx
 constexpr int OFF_B3 = OFF_W3 + 25 * C2;
 constexpr int N_PARAMS = OFF_B3 + 1;      // 8,129
 
+// The kernels' phases, for the profiling cuts (kernels/ablation.py): a
+// kernel instantiated at STAGE < FULL stops after that phase and writes,
+// per output pixel, one value that depends on all of that phase's work at
+// the pixel's own c2 ring position (cut_store), so that nvcc keeps the
+// whole phase.  Stages are cumulative; FULL is the production kernel.
+// A template argument, so an `int`: the values are the tools' stage codes.
+enum Stage : int { LOAD = 0, CONV1 = 1, CONV2 = 2, TAPS = 3, FULL = 4 };
+
+// A cut's value at c2 ring position (a, b) of the tile whose ring has rows
+// r0 - 2 .. and columns q0 - 2 ..: stored at output pixel (r0 + a - 2,
+// q0 + b - 2) when (a, b) is one of the tile's th x tw output pixels and
+// that pixel lies in the [h, w] plane; ring positions outside are dropped.
+__device__ __forceinline__ void cut_store(float* out, int a, int b, int r0,
+                                          int q0, int th, int tw, int h,
+                                          int w, float v) {
+  const int orow = r0 + a - 2, ocol = q0 + b - 2;
+  if (a >= 2 && a < th + 2 && b >= 2 && b < tw + 2 && orow < h && ocol < w)
+    out[(long long)orow * w + ocol] = v;
+}
+
+// Sum of v over the 4 lanes of an mma fragment's row group (lanes 4g ..
+// 4g + 3 hold the columns of rows g and g + 8); every lane gets the sum.
+// The whole warp must call it.
+template <typename T>
+__device__ __forceinline__ T quad_sum(T v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  v += __shfl_xor_sync(0xffffffffu, v, 2);
+  return v;
+}
+
 // The reference's border semantics (libsrcnn.cpp:463-489): conv3 reads
 // conv2's output clamped to the image.  c2s holds ROWS planes over a tile's
 // ring, [ROWS][stride c2_stride], ring position (a, b) = global c2

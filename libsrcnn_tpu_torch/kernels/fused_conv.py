@@ -14,6 +14,7 @@ K3h       ``"split"``, ``pack_im2col=True``   the same, hi/lo-packed conv1
 K3        ``"bf16x1"``                the same
 K3n       ``"bf16x1"``, ``geom="narrow"``     the same, narrower tile
 K4        the int8 tier               ``csrc/fused_srcnn_int8.cu``
+K5        ``"bf16x1"`` in row bands   ``csrc/fused_srcnn_bf16.cu``
 ========  ==========================  ===================================
 
 K4 ports ``_kernel_int8`` (reached through ``_fused_int8`` /
@@ -21,6 +22,13 @@ K4 ports ``_kernel_int8`` (reached through ``_fused_int8`` /
 :func:`forward_y_int8` and its plain version
 :func:`forward_y_int8_reference`.  The JAX package's int8 tile height
 (``INT8_TH = 80``) follows Mosaic's VMEM limits and is not carried over.
+
+K5 ports ``_kernel_band`` (reached through ``_fused_band`` /
+``forward_y_band``): K3's arithmetic with one block per band of rows,
+:func:`forward_y_band`, bit-identical to K3; its plain version is K3's.
+K5 and the stage cuts of :mod:`.ablation` (K6, K7) are the
+kernel-profiling path: they live in second builds of the same sources
+(``_build.PROFILING``), so the main path's libraries do not grow.
 
 The TPU kernel's tile geometry (TW=124 columns, 384-lane windows, the
 im2col scratch, lane rolls, the i32 tap-pair words) follows Mosaic's layout
@@ -68,11 +76,29 @@ NARROW_DEFAULT = False
 #: kernel launches made by :func:`launch` (and so :func:`forward_y`) in this
 #: process
 launches = 0
-#: the same, by kernel
-launches_by = {"K1": 0, "K2": 0, "K3": 0, "K3h": 0, "K3n": 0, "K4": 0}
+#: the same, by kernel (K6 and K7 are the cuts of :mod:`.ablation`)
+launches_by = {"K1": 0, "K2": 0, "K3": 0, "K3h": 0, "K3n": 0, "K4": 0,
+               "K5": 0, "K6": 0, "K7": 0}
 
-#: kernel -> index the bf16 library's entry point takes
-_BF16_KERNELS = {"K2": 0, "K3": 1, "K3h": 2, "K3n": 3}
+#: :func:`launch`'s kernels -> (library, entry point, leading int arguments;
+#: K5 adds its band height)
+_KERNELS = {"K1": ("fused_srcnn", "forward", ()),
+            "K2": ("fused_srcnn_bf16", "forward", (0,)),
+            "K3": ("fused_srcnn_bf16", "forward", (1,)),
+            "K3h": ("fused_srcnn_bf16", "forward", (2,)),
+            "K3n": ("fused_srcnn_bf16", "forward", (3,)),
+            "K4": ("fused_srcnn_int8", "forward", ()),
+            "K5": ("fused_srcnn_bf16_prof", "band_forward", ())}
+
+#: K5's inner-loop names in the JAX package (``band_impl``): a static
+#: unroll over the column tiles or a ``fori_loop`` over a rotated window.
+#: On Hopper both name the one K5 instance, a loop over the column tiles
+#: with a rolling window (``csrc/fused_srcnn_bf16.cu``).
+BAND_IMPLS = ("unroll", "fori")
+#: the band height this port recommends for K5 (not a default: the JAX
+#: package's 64 is): one 12-row tile per band gives a 2048-row plane 171
+#: blocks, more than the H100's 132 SMs; 64 rows give 32 (PERF.md)
+BAND_TILE_H = 12
 
 
 def pack_params(params: dict) -> torch.Tensor:
@@ -192,6 +218,25 @@ def forward_y_reference(params: dict, y_padded: torch.Tensor, h: int, w: int,
     return out[0] if squeeze else out
 
 
+def _check_band(tile_h, band_impl: str = BAND_IMPLS[0]) -> None:
+    if band_impl not in BAND_IMPLS:
+        raise ValueError(f"band_impl must be one of {BAND_IMPLS}, got {band_impl!r}")
+    if isinstance(tile_h, bool) or not isinstance(tile_h, int) or tile_h < 1:
+        raise ValueError(f"tile_h must be an int >= 1, got {tile_h!r}")
+
+
+def forward_y_band_reference(params: dict, y_padded: torch.Tensor, h: int,
+                             w: int, edge_flags=None, *, tile_h: int = 64,
+                             band_impl: str = "unroll") -> torch.Tensor:
+    """Plain PyTorch version of :func:`forward_y_band` (K5): K3's,
+    ``forward_y_reference(..., precision="bf16x1")``, since the band
+    geometry changes nothing a pixel computes.  Checks ``tile_h`` and
+    ``band_impl`` as the kernel's wrapper does."""
+    _check_band(tile_h, band_impl)
+    return forward_y_reference(params, y_padded, h, w, edge_flags,
+                               precision="bf16x1")
+
+
 def forward_y_int8_reference(qparams: dict, y_padded: torch.Tensor, h: int,
                              w: int, edge_flags=None) -> torch.Tensor:
     """Plain PyTorch version of :func:`forward_y_int8` (K4): the
@@ -214,39 +259,49 @@ def forward_y_int8_reference(qparams: dict, y_padded: torch.Tensor, h: int,
     return out[0] if squeeze else out
 
 
-def _declare(lib: ctypes.CDLL, prefix: str, n_int_args: int) -> ctypes.CDLL:
+def _declare(lib: ctypes.CDLL, prefix: str, entries: dict) -> ctypes.CDLL:
     for fn in ("n_params", "max_rows"):
         f = getattr(lib, f"{prefix}_{fn}")
         f.restype = ctypes.c_int
         f.argtypes = []
-    f = getattr(lib, f"{prefix}_forward")
-    f.restype = ctypes.c_int
-    f.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * n_int_args +
-                  [ctypes.c_void_p])
+    for entry, n_int_args in entries.items():
+        f = getattr(lib, f"{prefix}_{entry}")
+        f.restype = ctypes.c_int
+        f.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * n_int_args +
+                      [ctypes.c_void_p])
     return lib
 
 
-#: library -> (C prefix, int arguments of its ``_forward``)
-_LIBS = {"fused_srcnn": ("srcnn_fused", 7), "fused_srcnn_bf16": ("srcnn_bf16", 8),
-         "fused_srcnn_int8": ("srcnn_int8", 7)}
+#: library -> (C prefix, {entry point: its int arguments}).  Every entry
+#: point takes (y, out, params, n, h, w, the 4 edge flags, ...,
+#: stream); the ``_prof`` libraries (``_build.PROFILING``) add the
+#: profiling path's: ``cut_forward`` (K6, K7: [kernel index,] stage) and
+#: ``band_forward`` (K5: tile_h).
+_LIBS = {"fused_srcnn": ("srcnn_fused", {"forward": 7}),
+         "fused_srcnn_bf16": ("srcnn_bf16", {"forward": 8}),
+         "fused_srcnn_int8": ("srcnn_int8", {"forward": 7}),
+         "fused_srcnn_prof": ("srcnn_fused", {"forward": 7, "cut_forward": 8}),
+         "fused_srcnn_bf16_prof": ("srcnn_bf16", {"forward": 8, "cut_forward": 9,
+                                                  "band_forward": 8}),
+         "fused_srcnn_int8_prof": ("srcnn_int8", {"forward": 7, "cut_forward": 8})}
 
 
 @functools.lru_cache(maxsize=None)
 def _lib(name: str = "fused_srcnn") -> ctypes.CDLL:
     """A built kernel library (``fused_srcnn``: K1; ``fused_srcnn_bf16``:
-    K2, K3, K3h, K3n; ``fused_srcnn_int8``: K4), with its C signatures
-    declared."""
+    K2, K3, K3h, K3n; ``fused_srcnn_int8``: K4; their ``_prof`` builds
+    add K5, K6 and K7), with its C signatures declared."""
     from . import _build
 
     if name not in _LIBS:
         raise ValueError(f"no kernel library {name!r}")
-    prefix, n_int_args = _LIBS[name]
-    return _declare(_build.load(name), prefix, n_int_args)
+    prefix, entries = _LIBS[name]
+    return _declare(_build.load(name), prefix, entries)
 
 
 def build_all() -> None:
-    """Build every kernel library of this module (one nvcc each, all at
-    once) and load them."""
+    """Build every kernel library of this module, the profiling path's
+    included (one nvcc each, all at once), and load them."""
     from . import _build
 
     _build.build(*_LIBS)
@@ -311,27 +366,74 @@ def forward_y_int8(qparams: dict, y_padded: torch.Tensor, h: int, w: int,
     return out
 
 
+def forward_y_band(params: dict, y_padded: torch.Tensor, h: int, w: int,
+                   edge_flags=None, *, tile_h: int = 64,
+                   band_impl: str = "unroll") -> torch.Tensor:
+    """K3's conv stack in row bands (K5, port of ``forward_y_band``,
+    `fused_conv.py:600-628` of the JAX package) on halo planes ``[h+12,
+    w+12]`` or ``[N, h+12, w+12]`` f32 -> ``[h, w]`` or ``[N, h, w]``:
+    one block per band of ``tile_h`` rows and plane, which walks all of
+    its column tiles.  Its output equals K3's bit for bit.  ``band_impl``
+    takes the JAX package's two names, :data:`BAND_IMPLS`; both run the
+    one K5 instance.  On a CUDA tensor this launches K5 (from the
+    profiling build, at first use) and counts it; on a CPU tensor it runs
+    :func:`forward_y_band_reference`.  Any other device raises."""
+    _check_band(tile_h, band_impl)
+    _check_plane(y_padded, h, w)
+    flags = _flags(edge_flags)
+    dev = y_padded.device
+    if dev.type == "cpu":
+        return forward_y_band_reference(params, y_padded, h, w, flags,
+                                        tile_h=tile_h, band_impl=band_impl)
+    if dev.type != "cuda":
+        raise ValueError(f"fused_conv.forward_y_band takes CPU or CUDA "
+                         f"tensors, got {dev}")
+    if not y_padded.is_contiguous():
+        raise ValueError("y_padded must be contiguous")
+    out = torch.empty(y_padded.shape[:-2] + (h, w), dtype=torch.float32,
+                      device=dev)
+    launch("K5", pack_params(params).to(dev).contiguous(), y_padded, out,
+           flags, tile_h=tile_h)
+    return out
+
+
 def launch(kernel: str, packed: torch.Tensor, y_padded: torch.Tensor,
-           out: torch.Tensor, flags=(1, 1, 1, 1)) -> None:
-    """Launch ``kernel`` on CUDA tensors: ``packed`` from
+           out: torch.Tensor, flags=(1, 1, 1, 1), *, tile_h: int = 64) -> None:
+    """Launch ``kernel`` (K1-K5) on CUDA tensors: ``packed`` from
     :func:`pack_params` (K4: :func:`pack_int8_params`), ``y_padded``
     [N, h+12, w+12] or [h+12, w+12] f32, ``out`` [N, h, w] or [h, w] f32,
-    all contiguous on one device, on its current stream.  Adds one to
-    :data:`launches` and :data:`launches_by`.  :func:`forward_y` and
-    :func:`forward_y_int8` check their arguments and call this; a caller
-    that keeps the packed weights of one parameter set may call it
-    directly."""
+    all contiguous on one device, on its current stream; ``tile_h`` is
+    K5's band height and is read by K5 only.  Adds one to
+    :data:`launches` and :data:`launches_by`.  :func:`forward_y`,
+    :func:`forward_y_int8` and :func:`forward_y_band` check their
+    arguments and call this; a caller that keeps the packed weights of one
+    parameter set may call it directly."""
+    if kernel not in _KERNELS:
+        raise ValueError(f"no kernel {kernel!r}; the kernels are {tuple(_KERNELS)} "
+                         f"(K6 and K7 launch through kernels.ablation)")
+    name, entry, extra = _KERNELS[kernel]
+    if kernel == "K5":
+        _check_band(tile_h)
+        extra = (tile_h,)
+    run(name, entry, kernel, packed, y_padded, out, flags, *extra)
+
+
+def run(name: str, entry: str, counted: str, packed: torch.Tensor,
+        y_padded: torch.Tensor, out: torch.Tensor, flags, *extra: int) -> None:
+    """Check the arguments of a launch and make it: entry point ``entry``
+    of library ``name`` (:data:`_LIBS`) with ``extra`` int arguments
+    after the flags; then add one to :data:`launches` and to
+    ``launches_by[counted]``.  :func:`launch` and
+    :func:`.ablation.launch_cut` call this."""
     global launches
-    if kernel not in launches_by:
-        raise ValueError(f"no kernel {kernel!r}; the kernels are {tuple(launches_by)}")
     h, w = out.shape[-2:]
-    pdtype = torch.uint8 if kernel == "K4" else torch.float32
-    for name, t, dtype in (("packed", packed, pdtype),
-                           ("y_padded", y_padded, torch.float32),
-                           ("out", out, torch.float32)):
+    pdtype = torch.uint8 if name.startswith("fused_srcnn_int8") else torch.float32
+    for arg, t, dtype in (("packed", packed, pdtype),
+                          ("y_padded", y_padded, torch.float32),
+                          ("out", out, torch.float32)):
         if (t.device != y_padded.device or t.dtype != dtype
                 or not t.is_contiguous()):
-            raise ValueError(f"{name} must be a contiguous {dtype} tensor on "
+            raise ValueError(f"{arg} must be a contiguous {dtype} tensor on "
                              f"{y_padded.device}")
     if y_padded.device.type != "cuda":
         raise ValueError(f"launch takes CUDA tensors, got {y_padded.device}")
@@ -340,9 +442,7 @@ def launch(kernel: str, packed: torch.Tensor, y_padded: torch.Tensor,
                          f"{list(out.shape)} hold different batches")
     _check_plane(y_padded, h, w)
     flags = _flags(flags)
-    name = {"K1": "fused_srcnn", "K4": "fused_srcnn_int8"}.get(kernel, "fused_srcnn_bf16")
     lib, prefix = _lib(name), _LIBS[name][0]
-    extra = (_BF16_KERNELS[kernel],) if kernel in _BF16_KERNELS else ()
     n_params = getattr(lib, f"{prefix}_n_params")()
     if packed.numel() != n_params:
         raise ValueError(f"packed params hold {packed.numel()} elements, the "
@@ -354,10 +454,10 @@ def launch(kernel: str, packed: torch.Tensor, y_padded: torch.Tensor,
     n = 1 if y_padded.dim() == 2 else y_padded.shape[0]
     dev = y_padded.device
     with torch.cuda.device(dev):
-        err = getattr(lib, f"{prefix}_forward")(
+        err = getattr(lib, f"{prefix}_{entry}")(
             y_padded.data_ptr(), out.data_ptr(), packed.data_ptr(), n, h, w,
             *flags, *extra, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"{kernel} launch failed: cudaError {err}")
+        raise RuntimeError(f"{counted} launch failed: cudaError {err}")
     launches += 1
-    launches_by[kernel] += 1
+    launches_by[counted] += 1

@@ -162,14 +162,20 @@ def _conv1x1(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out.permute(0, 3, 1, 2).contiguous()
 
 
+def conv1(params: dict, x: torch.Tensor, precision: str = "exact") -> torch.Tensor:
+    """conv1 (9x9, valid) + ReLU on [N,1,H,W] -> h1 [N,64,H-8,W-8]."""
+    if precision == "exact":
+        return torch.relu(F.conv2d(x, params["w1"], params["b1"]))
+    return torch.relu(conv(x, params["w1"], precision) + _bias(params["b1"]))
+
+
 def conv12(params: dict, x: torch.Tensor, precision: str = "exact") -> torch.Tensor:
     """conv1 (9x9, valid) + ReLU, conv2 (1x1) + ReLU on [N,1,H,W] -> c2
     [N,32,H-8,W-8].  The exact form gives each position the same sums
     whatever the plane's height (the chunked path's bands rely on it)."""
+    h1 = conv1(params, x, precision)
     if precision == "exact":
-        h1 = torch.relu(F.conv2d(x, params["w1"], params["b1"]))
         return torch.relu(_conv1x1(h1, params["w2"]) + _bias(params["b2"]))
-    h1 = torch.relu(conv(x, params["w1"], precision) + _bias(params["b1"]))
     return torch.relu(conv(h1, params["w2"], precision) + _bias(params["b2"]))
 
 

@@ -118,10 +118,9 @@ def fold_requant(acc: torch.Tensor, s: torch.Tensor, t: torch.Tensor) -> torch.T
     return torch.clamp(torch.round(acc.to(torch.float32) * s + t), 0, 127).to(torch.int8)
 
 
-def conv12(qparams: dict, xq: torch.Tensor) -> torch.Tensor:
-    """conv1 (9x9, valid) with its folded requant, then conv2 (1x1) on
-    int8 codes [N, H, W] -> conv2's accumulators [N, H-8, W-8, 32]
-    (integer-valued f32, exact)."""
+def conv1(qparams: dict, xq: torch.Tensor) -> torch.Tensor:
+    """conv1 (9x9, valid) with its folded requant on int8 codes [N, H, W]
+    -> h1q codes [N, H-8, W-8, 64] (int8)."""
     n, hh, ww = xq.shape
     ho, wo = hh - 8, ww - 8
     x = xq.to(torch.float32)
@@ -129,7 +128,15 @@ def conv12(qparams: dict, xq: torch.Tensor) -> torch.Tensor:
         cols = torch.stack([x[:, dy:dy + ho, dx:dx + wo]
                             for dy in range(9) for dx in range(9)], dim=-1)
         acc1 = cols @ qparams["w1q"].to(torch.float32)           # [N,ho,wo,64]
-        h1q = fold_requant(acc1, qparams["s1"], qparams["t1"])
+    return fold_requant(acc1, qparams["s1"], qparams["t1"])
+
+
+def conv12(qparams: dict, xq: torch.Tensor) -> torch.Tensor:
+    """conv1 (9x9, valid) with its folded requant, then conv2 (1x1) on
+    int8 codes [N, H, W] -> conv2's accumulators [N, H-8, W-8, 32]
+    (integer-valued f32, exact)."""
+    h1q = conv1(qparams, xq)
+    with exact_f32(h1q.device):
         return h1q.to(torch.float32) @ qparams["w2q"].to(torch.float32)
 
 

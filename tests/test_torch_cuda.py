@@ -332,3 +332,90 @@ def test_chunked_ensemble_on_card(cuda, tier):
     out, conv = lt.upscale_chunked(img, 2.0, cfg, band_rows=17, device=cuda)
     np.testing.assert_array_equal(out, ref)
     np.testing.assert_array_equal(conv, refc)
+
+
+# --- the kernel-profiling path: K5 and the stage cuts (K6, K7) -------------
+
+
+@pytest.mark.parametrize("tile_h", [64, fused_conv.BAND_TILE_H, 7])
+@pytest.mark.parametrize("shape,flags", [
+    ((3, 3), None), ((1, 70), None), ((33, 47), None), ((130, 250), None),
+    ((130, 250), (0, 0, 0, 0)), ((61, 181), (1, 0, 0, 1)), ((300, 517), (0, 1, 0, 1)),
+])
+def test_band_kernel_equals_k3(cuda, tile_h, shape, flags):
+    """K5 runs K3's per-pixel arithmetic in row bands: equal bit for bit,
+    ragged bands and the interior-ring flags included."""
+    h, w = shape
+    p = srcnn.load_params(cuda)
+    y = _plane(h + 12, w + 12, 40, cuda)
+    before = fused_conv.launches_by["K5"]
+    got = fused_conv.forward_y_band(p, y, h, w, flags, tile_h=tile_h)
+    torch.cuda.synchronize()
+    assert fused_conv.launches_by["K5"] == before + 1
+    assert torch.equal(got, fused_conv.forward_y(p, y, h, w, flags, precision="bf16x1"))
+
+
+@pytest.mark.parametrize("band_impl", fused_conv.BAND_IMPLS)
+def test_band_kernel_batch_equals_k3(cuda, band_impl):
+    p = srcnn.load_params(cuda)
+    ys = torch.stack([_plane(75, 101, 41 + i, cuda) for i in range(3)])
+    got = fused_conv.forward_y_band(p, ys, 63, 89, (0, 1, 1, 0), tile_h=24,
+                                    band_impl=band_impl)
+    assert got.shape == (3, 63, 89)
+    assert torch.equal(got, fused_conv.forward_y(p, ys, 63, 89, (0, 1, 1, 0),
+                                                 precision="bf16x1"))
+
+
+def _assert_cut_close(kernel, got, ref):
+    """A cut against its plain version: K4's integer sums exactly; a float
+    cut at its kernel's gate after scaling the error by 255 / max(255,
+    max |value|) (tests/test_torch_ablation.py)."""
+    if kernel == "K4":
+        assert torch.equal(got, ref)
+        return
+    d = (got - ref).abs() * 255.0 / max(255.0, float(ref.abs().max()))
+    if kernel == "K3":
+        assert float(d.max()) <= BF16X1_MAX
+        assert float(torch.quantile(d.flatten()[:1_000_000], 0.999)) <= BF16X1_P999
+    else:
+        assert float(d.max()) <= (ATOL if kernel == "K1" else SPLIT_ATOL)
+
+
+def _cut_cases():
+    from libsrcnn_tpu_torch.kernels import ablation
+
+    return [(k, s) for k, stages in ablation.STAGES.items() for s in stages]
+
+
+@pytest.mark.parametrize("kernel,stage", _cut_cases())
+@pytest.mark.parametrize("shape", [(33, 47), (130, 250)])
+def test_cut_matches_plain_version(cuda, kernel, stage, shape):
+    from libsrcnn_tpu_torch.kernels import ablation
+    from libsrcnn_tpu_torch.models import srcnn_int8
+
+    h, w = shape
+    p = srcnn_int8.load_params(cuda) if kernel == "K4" else srcnn.load_params(cuda)
+    ys = torch.stack([_plane(h + 12, w + 12, 42 + i, cuda) for i in range(2)])
+    counted = "K7" if kernel == "K4" else "K6"
+    before = fused_conv.launches_by[counted]
+    got = ablation.forward_y_cut(kernel, stage, p, ys, h, w)
+    torch.cuda.synchronize()
+    assert fused_conv.launches_by[counted] == before + 1 and got.shape == (2, h, w)
+    _assert_cut_close(kernel, got, ablation.forward_y_cut_reference(kernel, stage, p,
+                                                                    ys, h, w))
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K3", "K4"])
+def test_full_cut_equals_production_kernel(cuda, kernel):
+    """The profiling build's FULL instance is the production kernel."""
+    from libsrcnn_tpu_torch.kernels import ablation
+    from libsrcnn_tpu_torch.models import srcnn_int8
+
+    p = srcnn_int8.load_params(cuda) if kernel == "K4" else srcnn.load_params(cuda)
+    y = _plane(142, 262, 43, cuda)
+    for flags in (None, (0, 1, 0, 1)):
+        got = ablation.forward_y_cut(kernel, "full", p, y, 130, 250, flags)
+        ref = (fused_conv.forward_y_int8(p, y, 130, 250, flags) if kernel == "K4" else
+               fused_conv.forward_y(p, y, 130, 250, flags,
+                                    precision=ablation.PRECISION[kernel]))
+        assert torch.equal(got, ref)
