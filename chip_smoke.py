@@ -11,9 +11,10 @@ Drives the port's paths on the card through its hand-written CUDA kernels
    their profiling builds (``-DSRCNN_PROFILING``: K5 and the stage cuts K6
    / K7); print each kernel's registers and spills; dump each cut
    instance's SASS (``cuobjdump``) and check that its count of HMMA / IMMA
-   / FFMA instructions grows with each stage the cut keeps, so that no cut
-   has been optimised away (the full kernel adds only adds, so its count
-   equals or passes the last cut's);
+   / HGMMA / FFMA instructions grows with each stage the cut keeps, so that
+   no cut has been optimised away (the full kernel adds only adds, so its
+   count equals or passes the last cut's); check that the production K1
+   runs on the tensor cores (HGMMA, ``wgmma``) and holds no FFMA;
 3. hold every kernel against its plain PyTorch version on the card at the
    listed plane shapes and edge flags, and a batch of 3 planes in one
    launch: K1 (exact) max abs error <= 2e-3; K2 (split) and K3h (split,
@@ -55,7 +56,9 @@ Drives the port's paths on the card through its hand-written CUDA kernels
    bands equal to the one-shot pass, at no more than half its peak device
    memory (both peaks and the chunked MP/s printed);
 8. time at 2048x2048 each kernel (its launch on weights packed once, and
-   through its wrapper) beside its plain version and a library yardstick
+   through its wrapper) beside its plain version, its bound (K1: 3xTF32 on
+   the tensor cores, and the f32 FMA bound beside it) and a library
+   yardstick
    (K1, K2, K3h: the cuDNN f32 conv stack; K3, K3n: the cuDNN bf16 conv
    stack; K4: ``torch._int_mm`` on the three im2col'd layers), the frame
    pass and ``upscale_frames`` per frame at each tier (medians of
@@ -119,11 +122,12 @@ PROFILING_KERNELS = {
 }
 # the cut that stands for K6 / K7 in the kernels record: each one's last
 # cut of its first kernel (every cut's time is printed in phase 9)
-RECORD_CUT = {"K6": ("K1", "conv2"), "K7": ("K4", "taps")}
+RECORD_CUT = {"K6": ("K1", "taps"), "K7": ("K4", "taps")}
 INT8_PSNR = 38.0     # butterfly x2 against the exact tier (tests/test_int8.py)
 # H100 SXM dense peak rates at 700 W (NVIDIA's data sheet)
 PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 MACS_PER_PIXEL = 81 * 64 + 64 * 32 + 25 * 32        # 8,032
@@ -186,16 +190,17 @@ def lsb(a: np.ndarray, b: np.ndarray) -> int:
 
 
 def bound(kernel: str, n: int, h: int, w: int,
-          macs_per_pixel: int = MACS_PER_PIXEL) -> tuple[float, str]:
+          macs_per_pixel: int = MACS_PER_PIXEL, fma: bool = False) -> tuple[float, str]:
     """Least time (ms) the card could take for the kernel's work on n
     [h, w] planes, and what sets it: the useful MACs (``macs_per_pixel``:
     all of them, or the stages a cut keeps) at the tensor-core bf16 rate
-    (two passes for the split forms), the int8 rate (K4) or the f32 FMA
-    rate (K1), or the planes in and out plus the parameters at the memory
-    rate."""
+    (two passes for the split forms), the TF32 rate (K1: three passes,
+    3xTF32; with ``fma``, the f32 FMA rate that K1 ran at before it moved
+    to the tensor cores), or the int8 rate (K4), or the planes in and out
+    plus the parameters at the memory rate."""
     macs = macs_per_pixel * n * h * w
     if kernel == "K1":
-        ops_s = 2 * macs / PEAK_F32_FLOPS
+        ops_s = 2 * macs / PEAK_F32_FLOPS if fma else 3 * 2 * macs / PEAK_TF32_FLOPS
     elif kernel == "K4":
         ops_s = 2 * macs / PEAK_INT8_OPS
     else:
@@ -206,18 +211,23 @@ def bound(kernel: str, n: int, h: int, w: int,
             "operations" if ops_s >= bytes_s else "bytes")
 
 
-def sass_counts(_build) -> dict:
-    """(kernel, stage) -> the count of HMMA / IMMA / FFMA instructions in
-    each cut instance of the profiling libraries, from ``cuobjdump -sass``
-    (the toolkit nvcc came from).  Instances are told apart by their
-    mangled template arguments: ``fused_srcnn_kernel<STAGE>`` (K1),
+SASS_OPS = ("HMMA", "IMMA", "HGMMA", "FFMA")
+PROFILING_LIBS = ("fused_srcnn_prof", "fused_srcnn_bf16_prof", "fused_srcnn_int8_prof")
+
+
+def sass_counts(_build, libs=PROFILING_LIBS) -> dict:
+    """(kernel, stage) -> {op: count} of the HMMA / IMMA / HGMMA / FFMA
+    instructions in each kernel instance of ``libs`` (the profiling
+    libraries' cuts by default), from ``cuobjdump -sass`` (the toolkit nvcc
+    came from).  Instances are told apart by their mangled template
+    arguments: ``fused_srcnn_kernel<STAGE>`` (K1),
     ``fused_srcnn_bf16_kernel<MODE, TW, STAGE>`` (MODE 0 K2, 1 K3, at TW
     60), ``fused_srcnn_int8_kernel<STAGE>`` (K4)."""
     from libsrcnn_tpu_torch.kernels import ablation
 
     stage_of = {code: name for name, code in ablation.STAGE_CODES.items()}
     counts = {}
-    for lib in ("fused_srcnn_prof", "fused_srcnn_bf16_prof", "fused_srcnn_int8_prof"):
+    for lib in libs:
         sass = subprocess.run([_build.tool("cuobjdump"), "-sass", _build.library_path(lib)],
                               capture_output=True, text=True, check=True).stdout
         key = None
@@ -232,12 +242,12 @@ def sass_counts(_build) -> dict:
                     kernel, stage = ("K1" if m.group(1) == "fused_srcnn" else "K4"), args[0]
                 key = None if kernel is None else (kernel, stage_of[stage])
                 if key:
-                    counts[key] = 0
+                    counts[key] = dict.fromkeys(SASS_OPS, 0)
                 continue
             if "Function :" in line:
                 key = None
-            elif key and re.search(r"\s(HMMA|IMMA|FFMA)[.\s]", line):
-                counts[key] += 1
+            elif key and (op := re.search(r"\s(HMMA|IMMA|HGMMA|FFMA)[.\s]", line)):
+                counts[key][op.group(1)] += 1
     return counts
 
 
@@ -278,11 +288,18 @@ def main() -> int:
     counts = sass_counts(_build)
     for kernel, stages in ablation.STAGES.items():
         seq = [counts.get((kernel, st)) for st in stages]
-        print(f"SASS HMMA/IMMA/FFMA of {kernel}'s cuts: "
-              + ", ".join(f"{st} {c}" for st, c in zip(stages, seq)))
         check(None not in seq, f"{kernel}: a cut instance is missing from the SASS")
+        seq = [sum(c.values()) for c in seq]
+        print(f"SASS HMMA/IMMA/HGMMA/FFMA of {kernel}'s cuts: "
+              + ", ".join(f"{st} {c}" for st, c in zip(stages, seq)))
         check(all(a < b for a, b in zip(seq[:-2], seq[1:-1])) and seq[-1] >= seq[-2],
               f"{kernel}: a cut's SASS count does not grow with its stages: {seq}")
+    # the production K1 runs its GEMMs on the tensor cores (wgmma) and no
+    # product on the FMA units
+    k1 = sass_counts(_build, ("fused_srcnn",)).get(("K1", "full"))
+    print(f"SASS of the production K1: {k1}")
+    check(k1 is not None and k1["HGMMA"] > 0 and k1["FFMA"] == 0,
+          f"the production K1 is not a wgmma kernel without FFMA: {k1}")
 
     # --- 3. kernels vs plain versions on the card --------------------------
     params = srcnn.load_params(dev)
@@ -649,9 +666,13 @@ def main() -> int:
                    "wrapper": lambda: fused_conv.forward_y(params, y, 2048, 2048, **mode)}
         t = timed(fns)
         kern_ms[name], plain_ms[name] = t["kernel"], t["plain"]
+        bms, by = bound(name, 1, 2048, 2048)
+        extra = (f"; f32 FMA bound {bound(name, 1, 2048, 2048, fma=True)[0]:.3f} ms"
+                 if name == "K1" else "")
         print(f"timing on {card}, median of 10: 2048^2 conv stack {name} "
               f"{t['kernel']:.3f} ms (through its wrapper {t['wrapper']:.3f} "
-              f"ms), its plain version {t['plain']:.3f} ms")
+              f"ms), its plain version {t['plain']:.3f} ms; bound {bms:.3f} ms "
+              f"({by}){extra}")
     # the nearest library computation to K3: cuDNN's bf16 convs (valid on the
     # halo plane, no ring clamp; their outputs are bf16); the port never calls it
     pb = {k: v.to(torch.bfloat16) for k, v in params.items()}
@@ -807,6 +828,9 @@ def main() -> int:
             "plain_ms": plain_ms[name], "bound_ms": bms, "bound_by": by,
             "library_ms": library_ms[name],
         }
+        if name == "K1":
+            # the f32 FMA bound K1 was held to before it moved to the tensor cores
+            record["bound_fma_ms"] = bound("K1", 1, 2048, 2048, fma=True)[0]
         if name in RECORD_CUT:
             # the record's numbers are this cut's; every cut's time is here
             kernel, stage = RECORD_CUT[name]

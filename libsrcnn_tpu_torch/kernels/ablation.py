@@ -12,7 +12,7 @@ profiling libraries, ``_build.PROFILING``).  Stages are cumulative:
            and the weights in shared memory
 ``conv1``  + conv1 9x9 1->64 with its epilogue (K4: the requant to h1q)
 ``conv2``  + conv2 1x1 64->32 with its epilogue (K4: c2q)
-``taps``   + conv3's tap GEMM (K2, K3, K4; K1 has no tap GEMM)
+``taps``   + conv3's tap GEMM
 ``full``   the whole kernel: the production instance, built again
 =========  ==============================================================
 
@@ -23,8 +23,10 @@ registers, so the cuts follow the CUDA kernels' own phases.
 What a cut writes.  The JAX cuts keep one channel; nvcc would then delete
 the other channels' work.  A cut here writes, per output pixel, one value
 that needs all of its last stage's work at that pixel's own c2 ring
-position: ``load`` the pixel's centre tap as the kernel holds it (f32 for
-K1, the bf16 value for K3, hi + lo for K2, the int8 code for K4);
+position: ``load`` the pixel's centre tap as the kernel holds it (tf32 hi
++ lo for K1, which is the f32 value to ~2^-22 and whose plain version is
+the f32 value; the bf16 value for K3, bf16 hi + lo for K2, the int8 code
+for K4);
 ``conv1`` the sum of the 64 h1 channels (h1q codes for K4); ``conv2`` the
 sum of the 32 c2 channels before the ring clamp (c2q codes for K4);
 ``taps`` the sum of the 25 taps of G.  So a cut's image is not an upscale
@@ -46,8 +48,8 @@ from .fused_conv import HALO
 
 _FLOAT_STAGES = ("load", "conv1", "conv2", "taps", "full")
 #: the stages of each kernel's cuts, in order
-STAGES = {"K1": ("load", "conv1", "conv2", "full"), "K2": _FLOAT_STAGES,
-          "K3": _FLOAT_STAGES, "K4": _FLOAT_STAGES}
+STAGES = {"K1": _FLOAT_STAGES, "K2": _FLOAT_STAGES, "K3": _FLOAT_STAGES,
+          "K4": _FLOAT_STAGES}
 #: stage -> the code the kernels take (``srcnn::Stage``, srcnn_common.cuh)
 STAGE_CODES = {"load": 0, "conv1": 1, "conv2": 2, "taps": 3, "full": 4}
 #: stage -> the MACs per output pixel it keeps (the ring's recomputation

@@ -8,7 +8,7 @@ Port of ``libsrcnn_tpu/kernels/fused_conv.py`` (``_kernel``, reached through
 ========  ==========================  ===================================
 kernel    mode                        source
 ========  ==========================  ===================================
-K1        ``precision="exact"``       ``csrc/fused_srcnn.cu`` (f32 FMA)
+K1        ``precision="exact"``       ``csrc/fused_srcnn.cu`` (3xTF32)
 K2        ``"split"``                 ``csrc/fused_srcnn_bf16.cu``
 K3h       ``"split"``, ``pack_im2col=True``   the same, hi/lo-packed conv1
 K3        ``"bf16x1"``                the same

@@ -5,7 +5,8 @@ The JAX ablation kernels cannot run here (their ``pallas_call`` takes no
 ``interpret``), so each cut's plain version is compared with values built
 from the JAX package's own functions:
 
-* K1: ``models.srcnn._conv`` / ``edge_pad`` (f32 HIGHEST), the channels
+* K1: ``models.srcnn._conv`` / ``edge_pad`` (f32 HIGHEST) and, for the
+  ``taps`` cut, ``kernels.fused_conv._dot`` at HIGHEST, the channels
   summed in numpy (f64);
 * K2 / K3: ``kernels.fused_conv._dot`` in the kernel's precision (split /
   BF16X1) on the im2col'd window, the same sums;
@@ -88,22 +89,23 @@ def _jax_float_cut(kernel, stage, jparams, yh):
         lo = np.asarray(jnp.asarray(x - hi).astype(jnp.bfloat16).astype(jnp.float32))
         return hi + lo
     p = {k: jnp.asarray(v, jnp.float32) for k, v in jparams.items()}
+    prec = JAX_PRECISION.get(kernel, jax.lax.Precision.HIGHEST)
+    dims = (((1,), (0,)), ((), ()))
     if kernel == "K1":
         x = jnp.asarray(yh[2:H + 10, 2:W + 10])[None, :, :, None]
         h1 = jnp.maximum(jsrcnn._conv(x, p["w1"]) + p["b1"], 0.0)
         c2 = jnp.maximum(jsrcnn._conv(h1, p["w2"]) + p["b2"], 0.0)
     else:
-        prec = JAX_PRECISION[kernel]
-        dims = (((1,), (0,)), ((), ()))
         cols = jnp.asarray(_windows(yh))
         h1 = jnp.maximum(jfused._dot(cols, p["w1"].reshape(81, 64), dims, prec)
                          + p["b1"], 0.0)
         c2 = jnp.maximum(jfused._dot(h1, p["w2"].reshape(64, 32), dims, prec)
                          + p["b2"], 0.0)
-        if stage == "taps":
-            w3 = p["w3"][:, :, :, 0].reshape(25, 32).T          # [32, 25]
-            g = jfused._dot(c2, w3, dims, prec)
-            return np.asarray(g, np.float64).sum(-1).reshape(H, W)
+    if stage == "taps":
+        # conv3's GEMM against the 25 tap vectors (K1: at HIGHEST)
+        w3 = p["w3"][:, :, :, 0].reshape(25, 32).T              # [32, 25]
+        g = jfused._dot(c2, w3, (((c2.ndim - 1,), (0,)), ((), ())), prec)
+        return np.asarray(g, np.float64).sum(-1).reshape(H, W)
     v = h1 if stage == "conv1" else c2
     return np.asarray(v, np.float64).sum(-1).reshape(H, W)
 
@@ -188,7 +190,7 @@ def test_cuts_batch_and_count_nothing_on_cpu(params, qp, kernel):
 
 
 @pytest.mark.parametrize("kernel,stage,match", [
-    ("K1", "taps", "stage"), ("K2", "dma", "stage"), ("K4", "quant", "stage"),
+    ("K1", "dma", "stage"), ("K2", "dma", "stage"), ("K4", "quant", "stage"),
     ("K3h", "load", "cut kernels"), ("K5", "full", "cut kernels"),
 ])
 def test_cut_rejects_bad_kernel_or_stage(params, kernel, stage, match):

@@ -158,6 +158,20 @@ def test_batched_launch_equals_per_plane(cuda, kernel):
         assert torch.equal(got[i], fused_conv.forward_y(p, ys[i], 63, 89, **kw))
 
 
+def test_k1_persistent_grid_walks_many_tiles(cuda):
+    """K1 runs at most one block per SM slot, each walking the batch's
+    tiles with a static stride and prefetching its next window: a batch of
+    612 tiles (several per block) equals its plain version, and each plane
+    (102 tiles, at most one per block) launched alone."""
+    p = srcnn.load_params(cuda)
+    ys = torch.stack([_plane(269, 313, 60 + i, cuda) for i in range(6)])
+    got = fused_conv.forward_y(p, ys, 257, 301, (1, 0, 0, 1))
+    ref = fused_conv.forward_y_reference(p, ys, 257, 301, (1, 0, 0, 1))
+    assert float((got - ref).abs().max()) <= ATOL
+    for i in range(6):
+        assert torch.equal(got[i], fused_conv.forward_y(p, ys[i], 257, 301, (1, 0, 0, 1)))
+
+
 @pytest.mark.parametrize("kernel", ["K1", *BF16_MODES])
 def test_two_streams_two_parameter_sets(cuda, kernel):
     """Launches with different weights alternate on two streams; each
