@@ -120,9 +120,10 @@ PROFILING_KERNELS = {
     "K6": ("fused_srcnn.cu", "benchmarks/kernel_ablation.py:48"),
     "K7": ("fused_srcnn_int8.cu", "benchmarks/int8_ablation.py:43"),
 }
-# the cut that stands for K6 / K7 in the kernels record: each one's last
-# cut of its first kernel (every cut's time is printed in phase 9)
-RECORD_CUT = {"K6": ("K1", "taps"), "K7": ("K4", "taps")}
+# the cut that stands for K6 / K7 in the kernels record, the same in every
+# run so that the record compares across versions: K1's conv2 and K4's taps
+# (every cut's time is printed in phase 9)
+RECORD_CUT = {"K6": ("K1", "conv2"), "K7": ("K4", "taps")}
 INT8_PSNR = 38.0     # butterfly x2 against the exact tier (tests/test_int8.py)
 # H100 SXM dense peak rates at 700 W (NVIDIA's data sheet)
 PEAK_BF16_FLOPS = 989e12
@@ -828,9 +829,6 @@ def main() -> int:
             "plain_ms": plain_ms[name], "bound_ms": bms, "bound_by": by,
             "library_ms": library_ms[name],
         }
-        if name == "K1":
-            # the f32 FMA bound K1 was held to before it moved to the tensor cores
-            record["bound_fma_ms"] = bound("K1", 1, 2048, 2048, fma=True)[0]
         if name in RECORD_CUT:
             # the record's numbers are this cut's; every cut's time is here
             kernel, stage = RECORD_CUT[name]

@@ -32,7 +32,7 @@
 // conv2 and the tap GEMM at about half of it (PERF.md).
 //
 // Design:
-// * A persistent grid: min(tiles, blocks per SM x SMs) blocks of 256
+// * A persistent grid: min(tiles, SMs) blocks of 256
 //   threads (two warpgroups), each walking the 16 x 60 output tiles of all
 //   n planes with a static stride (tile = blockIdx.x + i * gridDim.x).  No
 //   counter or other state outlives a launch, so launches with other
@@ -87,6 +87,7 @@
 //   counterpart here: there is no lane rotate, and conv1's im2col is done
 //   in registers.  The production kernel is the FULL instance.
 
+#include <atomic>
 #include <climits>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -128,7 +129,8 @@ constexpr int OFF_RAW = OFF_BIAS + B_BIAS;
 constexpr int OFF_WINH = OFF_RAW + B_WIN;
 constexpr int OFF_WINL = OFF_WINH + B_WIN;
 constexpr size_t SMEM_BYTES = OFF_WINL + B_WIN;             // 223,360
-static_assert(SMEM_BYTES <= 232448, "shared memory");
+// more than half of the 232,448 B an SM holds: one block per SM
+static_assert(SMEM_BYTES <= 232448 && 2 * SMEM_BYTES > 232448, "shared memory");
 
 // ---- 3xTF32 --------------------------------------------------------------
 
@@ -593,6 +595,21 @@ fused_srcnn_kernel(const float* __restrict__ y,
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
+// The current device's SM count, read once per device.
+cudaError_t sm_count(int* sms) {
+  static std::atomic<int> cached[64];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 64 && (*sms = cached[dev].load(std::memory_order_relaxed)) > 0)
+    return cudaSuccess;
+  if ((e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev)) !=
+      cudaSuccess)
+    return e;
+  if (dev < 64) cached[dev].store(*sms, std::memory_order_relaxed);
+  return cudaSuccess;
+}
+
 template <int STAGE>
 cudaError_t launch(const float* y, float* out, const float* params, int n,
                    int h, int w, int f_top, int f_bottom, int f_left,
@@ -601,19 +618,11 @@ cudaError_t launch(const float* y, float* out, const float* params, int n,
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
   if (e != cudaSuccess) return e;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
-  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
-      cudaSuccess)
-    return e;
-  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, kernel, NT, SMEM_BYTES)) != cudaSuccess)
-    return e;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  int sms = 0;
+  if ((e = sm_count(&sms)) != cudaSuccess) return e;
   const long long tiles = static_cast<long long>((h + TH - 1) / TH) *
                           ((w + TW - 1) / TW) * n;
-  const long long slots = static_cast<long long>(per_sm) * sms;
-  const int grid = static_cast<int>(tiles < slots ? tiles : slots);
+  const int grid = static_cast<int>(tiles < sms ? tiles : sms);  // 1 per SM
   kernel<<<grid, NT, SMEM_BYTES, stream>>>(y, params, out, n, h, w, f_top,
                                            f_bottom, f_left, f_right);
   return cudaGetLastError();
