@@ -11,10 +11,12 @@ Drives the port's paths on the card through its hand-written CUDA kernels
    their profiling builds (``-DSRCNN_PROFILING``: K5 and the stage cuts K6
    / K7); print each kernel's registers and spills; dump each cut
    instance's SASS (``cuobjdump``) and check that its count of HMMA / IMMA
-   / HGMMA / FFMA instructions grows with each stage the cut keeps, so that
-   no cut has been optimised away (the full kernel adds only adds, so its
-   count equals or passes the last cut's); check that the production K1
-   runs on the tensor cores (HGMMA, ``wgmma``) and holds no FFMA;
+   / HGMMA / IGMMA / FFMA instructions grows with each stage the cut keeps,
+   so that no cut has been optimised away (the full kernel adds only adds,
+   so its count equals or passes the last cut's); check that the production
+   K1 runs on the tensor cores (HGMMA, ``wgmma``) and holds no FFMA, and that
+   the production K2 and K4 hold HGMMA / IGMMA (``wgmma`` on bf16 / s8) and
+   no HMMA / IMMA (``mma.sync``);
 3. hold every kernel against its plain PyTorch version on the card at the
    listed plane shapes and edge flags, and a batch of 3 planes in one
    launch: K1 (exact) max abs error <= 2e-3; K2 (split) and K3h (split,
@@ -57,7 +59,8 @@ Drives the port's paths on the card through its hand-written CUDA kernels
    memory (both peaks and the chunked MP/s printed);
 8. time at 2048x2048 each kernel (its launch on weights packed once, and
    through its wrapper) beside its plain version, its bound (K1: 3xTF32 on
-   the tensor cores, and the f32 FMA bound beside it) and a library
+   the tensor cores, and the f32 FMA bound beside it), K2's and K4's
+   figures before their redesign on ``wgmma`` and a library
    yardstick
    (K1, K2, K3h: the cuDNN f32 conv stack; K3, K3n: the cuDNN bf16 conv
    stack; K4: ``torch._int_mm`` on the three im2col'd layers), the frame
@@ -120,6 +123,9 @@ PROFILING_KERNELS = {
     "K6": ("fused_srcnn.cu", "benchmarks/kernel_ablation.py:48"),
     "K7": ("fused_srcnn_int8.cu", "benchmarks/int8_ablation.py:43"),
 }
+# K2's and K4's 2048^2 launch times on their mma.sync design, before the
+# redesign on wgmma (PERF.md, PR 5's chip run on an H100 SXM at 700 W)
+BEFORE_WGMMA_MS = {"K2": 0.984, "K4": 0.755}
 # the cut that stands for K6 / K7 in the kernels record, the same in every
 # run so that the record compares across versions: K1's conv2 and K4's taps
 # (every cut's time is printed in phase 9)
@@ -212,18 +218,20 @@ def bound(kernel: str, n: int, h: int, w: int,
             "operations" if ops_s >= bytes_s else "bytes")
 
 
-SASS_OPS = ("HMMA", "IMMA", "HGMMA", "FFMA")
+SASS_OPS = ("HMMA", "IMMA", "HGMMA", "IGMMA", "FFMA")
 PROFILING_LIBS = ("fused_srcnn_prof", "fused_srcnn_bf16_prof", "fused_srcnn_int8_prof")
 
 
 def sass_counts(_build, libs=PROFILING_LIBS) -> dict:
-    """(kernel, stage) -> {op: count} of the HMMA / IMMA / HGMMA / FFMA
-    instructions in each kernel instance of ``libs`` (the profiling
-    libraries' cuts by default), from ``cuobjdump -sass`` (the toolkit nvcc
-    came from).  Instances are told apart by their mangled template
-    arguments: ``fused_srcnn_kernel<STAGE>`` (K1),
-    ``fused_srcnn_bf16_kernel<MODE, TW, STAGE>`` (MODE 0 K2, 1 K3, at TW
-    60), ``fused_srcnn_int8_kernel<STAGE>`` (K4)."""
+    """(kernel, stage) -> {op: count} of the HMMA / IMMA (``mma.sync``),
+    HGMMA / IGMMA (``wgmma``: float / integer) and FFMA instructions in
+    each kernel instance of ``libs`` (the profiling libraries' cuts by
+    default), from ``cuobjdump -sass`` (the toolkit nvcc came from).
+    Instances are told apart by their mangled template arguments:
+    ``fused_srcnn_kernel<STAGE>`` (K1),
+    ``fused_srcnn_split_kernel<STAGE>`` (K2),
+    ``fused_srcnn_bf16_kernel<MODE, TW, STAGE>`` (MODE 1 at TW 60: K3),
+    ``fused_srcnn_int8_kernel<STAGE>`` (K4)."""
     from libsrcnn_tpu_torch.kernels import ablation
 
     stage_of = {code: name for name, code in ablation.STAGE_CODES.items()}
@@ -233,21 +241,24 @@ def sass_counts(_build, libs=PROFILING_LIBS) -> dict:
                               capture_output=True, text=True, check=True).stdout
         key = None
         for line in sass.splitlines():
-            m = re.search(r"Function : \S*?(fused_srcnn(?:_bf16|_int8)?)_kernelI((?:Li\d+E)+)E", line)
+            m = re.search(r"Function : \S*?(fused_srcnn(?:_bf16|_int8|_split)?)_kernelI"
+                          r"((?:Li\d+E)+)E", line)
             if m:
                 args = [int(a) for a in re.findall(r"Li(\d+)E", m.group(2))]
                 if m.group(1) == "fused_srcnn_bf16":
                     mode, tw, stage = args
-                    kernel = {(0, 60): "K2", (1, 60): "K3"}.get((mode, tw))
+                    kernel = "K3" if (mode, tw) == (1, 60) else None
                 else:
-                    kernel, stage = ("K1" if m.group(1) == "fused_srcnn" else "K4"), args[0]
+                    kernel = {"fused_srcnn": "K1", "fused_srcnn_split": "K2",
+                              "fused_srcnn_int8": "K4"}[m.group(1)]
+                    stage = args[0]
                 key = None if kernel is None else (kernel, stage_of[stage])
                 if key:
                     counts[key] = dict.fromkeys(SASS_OPS, 0)
                 continue
             if "Function :" in line:
                 key = None
-            elif key and (op := re.search(r"\s(HMMA|IMMA|HGMMA|FFMA)[.\s]", line)):
+            elif key and (op := re.search(r"\s(HMMA|IMMA|HGMMA|IGMMA|FFMA)[.\s]", line)):
                 counts[key][op.group(1)] += 1
     return counts
 
@@ -291,16 +302,20 @@ def main() -> int:
         seq = [counts.get((kernel, st)) for st in stages]
         check(None not in seq, f"{kernel}: a cut instance is missing from the SASS")
         seq = [sum(c.values()) for c in seq]
-        print(f"SASS HMMA/IMMA/HGMMA/FFMA of {kernel}'s cuts: "
+        print(f"SASS HMMA/IMMA/HGMMA/IGMMA/FFMA of {kernel}'s cuts: "
               + ", ".join(f"{st} {c}" for st, c in zip(stages, seq)))
         check(all(a < b for a, b in zip(seq[:-2], seq[1:-1])) and seq[-1] >= seq[-2],
               f"{kernel}: a cut's SASS count does not grow with its stages: {seq}")
     # the production K1 runs its GEMMs on the tensor cores (wgmma) and no
-    # product on the FMA units
-    k1 = sass_counts(_build, ("fused_srcnn",)).get(("K1", "full"))
-    print(f"SASS of the production K1: {k1}")
-    check(k1 is not None and k1["HGMMA"] > 0 and k1["FFMA"] == 0,
-          f"the production K1 is not a wgmma kernel without FFMA: {k1}")
+    # product on the FMA units; the production K2 and K4 are wgmma kernels
+    # with no mma.sync left
+    prod = sass_counts(_build, ("fused_srcnn", "fused_srcnn_bf16", "fused_srcnn_int8"))
+    for kernel in ("K1", "K2", "K4"):
+        c = prod.get((kernel, "full"))
+        print(f"SASS of the production {kernel}: {c}")
+        check(c is not None and c["HGMMA"] + c["IGMMA"] > 0 and c["HMMA"] == c["IMMA"] == 0,
+              f"the production {kernel} is not a wgmma kernel: {c}")
+    check(prod[("K1", "full")]["FFMA"] == 0, "the production K1 holds FFMA")
 
     # --- 3. kernels vs plain versions on the card --------------------------
     params = srcnn.load_params(dev)
@@ -669,7 +684,9 @@ def main() -> int:
         kern_ms[name], plain_ms[name] = t["kernel"], t["plain"]
         bms, by = bound(name, 1, 2048, 2048)
         extra = (f"; f32 FMA bound {bound(name, 1, 2048, 2048, fma=True)[0]:.3f} ms"
-                 if name == "K1" else "")
+                 if name == "K1" else
+                 f"; {BEFORE_WGMMA_MS[name]:.3f} ms before its redesign on wgmma"
+                 if name in BEFORE_WGMMA_MS else "")
         print(f"timing on {card}, median of 10: 2048^2 conv stack {name} "
               f"{t['kernel']:.3f} ms (through its wrapper {t['wrapper']:.3f} "
               f"ms), its plain version {t['plain']:.3f} ms; bound {bms:.3f} ms "

@@ -241,8 +241,9 @@ def process_srcnn(refbuff, w: int, h: int, d: int, multiply: float):
       (retcode, outbuff, convbuff): retcode 0 on success, -1 for bad args,
       -2 for bad scale (matching `libsrcnn.cpp:951-966`), -100 for a
       step-scale chain that runs no pass, -11 when the device or host runs
-      out of memory; outbuff/convbuff are flat u8 numpy arrays (or None on
-      failure).
+      out of memory for the output, -12 when the conv map's buffer cannot
+      be allocated (the output is still handed back); outbuff/convbuff are
+      flat u8 numpy arrays (or None on failure).
     """
     # The reference declares w/h/d `unsigned` (`libsrcnn.h:48-50`), so a
     # negative geometry is unrepresentable there; in Python we report it as
@@ -279,10 +280,17 @@ def process_srcnn(refbuff, w: int, h: int, d: int, multiply: float):
         return -100, None, None
     img = buf.reshape(h, w, d)
     # Allocation-failure parity (`libsrcnn.cpp:883,910`): -11 when the
-    # output buffer cannot be allocated, on the host or on the card.
+    # output buffer cannot be allocated, on the host or on the card; -12
+    # when the conv map's cannot, with the output already handed back
+    # (`libsrcnn.cpp:895-912`).
     try:
         out, conv = upscale(img, multiply, cfg, return_conv_map=True,
                             device=device)
+        out_flat = out.ravel()
     except (MemoryError, torch.cuda.OutOfMemoryError):
         return -11, None, None
-    return 0, out.ravel(), conv.ravel() if conv is not None else None
+    try:
+        conv_flat = conv.ravel() if conv is not None else None
+    except MemoryError:
+        return -12, out_flat, None
+    return 0, out_flat, conv_flat

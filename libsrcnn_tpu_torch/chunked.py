@@ -121,6 +121,13 @@ def _resolve_chunked(cfg: SRCNNConfig, device: torch.device) -> bool:
     if cfg.step_scale:
         raise ValueError("step_scale is not supported by the chunked path "
                          "(one direct pass; chain calls per x2 pass)")
+    if cfg.lane_pack:
+        # the JAX package's bands run the learned families unpacked, so that
+        # they stay bit-identical to the unpacked one-shot path, and refuse an
+        # explicit lane_pack=True rather than change the reduction order
+        raise ValueError("lane_pack=True is not supported by the chunked "
+                         "path (bands run the LR stacks unpacked; leave "
+                         "lane_pack unset/False)")
     if cfg.model in pipeline.UNPORTED_MODELS:
         raise NotImplementedError(
             f"the chunked path of model={cfg.model!r} is not ported yet "

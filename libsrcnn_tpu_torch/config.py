@@ -71,6 +71,14 @@ class SRCNNConfig:
       model: which model family upscales the Y channel.  Only ``"srcnn"``
         (the reference's 9-1-5) is ported; the rest of the zoo is ROADMAP
         item M9.
+      lane_pack: the JAX package's MXU-lane-packed formulation of the
+        learned families' convs (p adjacent output columns share the TPU's
+        128 lanes; the same f32 MACs in another reduction order).  The port
+        takes the field so that a config written for the JAX package
+        builds here, and has nothing to pack on Hopper: ``upscale``
+        ignores it (as the JAX package does for the srcnn model, whose
+        fused kernel owns the conv stack); ``upscale_chunked`` refuses
+        ``True``, as the JAX package's chunked path does.
     """
 
     filter: FilterType = FilterType.BICUBIC
@@ -80,6 +88,7 @@ class SRCNNConfig:
     emit_conv_map: bool = False
     use_kernel: bool | None = None
     model: str = "srcnn"
+    lane_pack: bool | None = None
 
 
 DEFAULT_CONFIG = SRCNNConfig()

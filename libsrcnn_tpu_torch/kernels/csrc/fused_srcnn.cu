@@ -79,6 +79,8 @@
 // biases 512 B; three window planes (staging, hi, lo) 24,192 B; 223,360 B
 // in all, one block per SM.
 //
+// * srcnn_wgmma.cuh holds the wgmma wrappers, the tile walk and the
+//   persistent grid that K1 shares with K2 and K4.
 // * Profiling cuts (K6 of kernels/ablation.py, built only with
 //   -DSRCNN_PROFILING): the STAGE template argument stops the kernel after
 //   its window is split and its weights are staged (LOAD), after conv1
@@ -87,12 +89,12 @@
 //   counterpart here: there is no lane rotate, and conv1's im2col is done
 //   in registers.  The production kernel is the FULL instance.
 
-#include <atomic>
 #include <climits>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "srcnn_common.cuh"
+#include "srcnn_wgmma.cuh"
 
 namespace {
 
@@ -146,100 +148,14 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) 
   lo = tf32_rna(__fsub_rn(x, __uint_as_float(hi)));
 }
 
-// ---- wgmma -----------------------------------------------------------------
-
-// Descriptor of a K-major B operand without swizzle at `p` (shared memory):
-// LBO = 128 B between the two core matrices of a k8 step along K, SBO =
-// `sbo` bytes between groups of 8 columns along N.
-__device__ __forceinline__ uint64_t b_desc(const void* p, uint32_t sbo) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  return static_cast<uint64_t>((a & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(128 >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32);
-}
-
-// the descriptor of k8 step s: 2 core matrices (256 B) further along K
-__device__ __forceinline__ uint64_t at_step(uint64_t desc, int s) {
-  return desc + static_cast<uint64_t>(16 * s);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Keeps the compiler from moving reads or writes of r across this point
-// (the wgmma instructions read and write registers asynchronously).
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int S>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[S][4]) {
-#pragma unroll
-  for (int s = 0; s < S; ++s)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(r[s][i])::"memory");
-}
-
-// d[64 x 64] += a[64 x 8] (registers) * b[8 x 64] (shared memory), tf32
-// operands, f32 accumulators
-__device__ __forceinline__ void wgmma_n64(float (&d)[32], const uint32_t (&a)[4],
-                                          uint64_t desc) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-}
-
-// d[64 x 32] += a[64 x 8] * b[8 x 32], as wgmma_n64
-__device__ __forceinline__ void wgmma_n32(float (&d)[16], const uint32_t (&a)[4],
-                                          uint64_t desc) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-}
-
 // d += a (registers) * the k8 step s of b, for the accumulator's width
 template <int NREG>
 __device__ __forceinline__ void wgmma_step(float (&d)[NREG], const uint32_t (&a)[4],
                                            uint64_t b, int s) {
   if constexpr (NREG == 32)
-    wgmma_n64(d, a, at_step(b, s));
+    wgmma_n64_tf32(d, a, at_step(b, s));
   else
-    wgmma_n32(d, a, at_step(b, s));
+    wgmma_n32_tf32(d, a, at_step(b, s));
 }
 
 // One GEMM of a warpgroup's m64 tile in 3xTF32, in two calls: d = the sum
@@ -270,7 +186,7 @@ __device__ __forceinline__ void gemm_hi_passes(float (&d)[NREG],
 #pragma unroll
   for (int s = 0; s < KS; ++s) wgmma_step(d, ah[s], bh, s);
   wgmma_commit();
-  wgmma_wait_all();
+  wgmma_wait<0>();
   fence_regs(d);
   fence_regs(ah);
   fence_regs(al);
@@ -349,35 +265,6 @@ __device__ void stage_params(const float* __restrict__ params,
   for (int i = t; i < C1 + C2 + 1; i += NT)
     bias[i] = i < C1 ? params[OFF_B1 + i]
                      : i < C1 + C2 ? params[OFF_B2 + i - C1] : params[OFF_B3];
-}
-
-struct Tile {
-  int plane, r0, q0;                      // r0, q0: output coordinates
-};
-
-__device__ __forceinline__ Tile tile_at(long long tile, int tr, int tc) {
-  const long long per_plane = static_cast<long long>(tr) * tc;
-  const long long rem = tile % per_plane;
-  return {static_cast<int>(tile / per_plane), static_cast<int>(rem / tc) * TH,
-          static_cast<int>(rem % tc) * TW};
-}
-
-// Issue the cp.async copies of a tile's window = padded rows r0 .. r0+WH-1,
-// cols q0 .. q0+WW-1, into `raw`, as one group.  Reads past the plane
-// (ragged tiles) are clamped in; they feed only masked outputs.
-__device__ __forceinline__ void fetch_window(float* raw, const float* __restrict__ y,
-                                             Tile tl, int h, int w, int t) {
-  const int ph = h + 2 * HALO, pw = w + 2 * HALO;
-  const float* yp = y + static_cast<long long>(tl.plane) * ph * pw;
-  for (int i = t; i < WH * WW; i += NT) {
-    const int pr = min(tl.r0 + i / WW, ph - 1);
-    const int pc = min(tl.q0 + i % WW, pw - 1);
-    const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(raw + i));
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
-                 "l"(yp + static_cast<long long>(pr) * pw + pc)
-                 : "memory");
-  }
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
 // ---- one tile ----------------------------------------------------------------
@@ -550,7 +437,7 @@ fused_srcnn_kernel(const float* __restrict__ y,
   const long long tiles = static_cast<long long>(tr) * tc * n;
 
   long long tile = blockIdx.x;
-  fetch_window(raw, y, tile_at(tile, tr, tc), h, w, t);
+  fetch_window<WH, WW, NT>(raw, y, tile_at<TH, TW>(tile, tr, tc), h, w, t);
   stage_params(params, smem, t);
   // the B operands are read by wgmma, through the async proxy
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -562,7 +449,7 @@ fused_srcnn_kernel(const float* __restrict__ y,
                      b_desc(smem + OFF_W3L, (C2 / 4) * 128)};
 
   for (; tile < tiles; tile += gridDim.x) {
-    const Tile tl = tile_at(tile, tr, tc);
+    const Tile tl = tile_at<TH, TW>(tile, tr, tc);
     float* po = out + static_cast<long long>(tl.plane) * h * w;
 
     asm volatile("cp.async.wait_all;\n" ::: "memory");
@@ -570,7 +457,8 @@ fused_srcnn_kernel(const float* __restrict__ y,
     for (int i = t; i < WH * WW; i += NT) split_tf32(raw[i], winh[i], winl[i]);
     __syncthreads();
     if (tile + gridDim.x < tiles)         // the next tile's window, meanwhile
-      fetch_window(raw, y, tile_at(tile + gridDim.x, tr, tc), h, w, t);
+      fetch_window<WH, WW, NT>(raw, y, tile_at<TH, TW>(tile + gridDim.x, tr, tc),
+                               h, w, t);
 
     if constexpr (STAGE == LOAD) {        // cut: the centre tap as split
       for (int s = t; s < TH * TW; s += NT) {
@@ -595,21 +483,6 @@ fused_srcnn_kernel(const float* __restrict__ y,
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-// The current device's SM count, read once per device.
-cudaError_t sm_count(int* sms) {
-  static std::atomic<int> cached[64];
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  if (dev < 64 && (*sms = cached[dev].load(std::memory_order_relaxed)) > 0)
-    return cudaSuccess;
-  if ((e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev)) !=
-      cudaSuccess)
-    return e;
-  if (dev < 64) cached[dev].store(*sms, std::memory_order_relaxed);
-  return cudaSuccess;
-}
-
 template <int STAGE>
 cudaError_t launch(const float* y, float* out, const float* params, int n,
                    int h, int w, int f_top, int f_bottom, int f_left,
@@ -618,11 +491,8 @@ cudaError_t launch(const float* y, float* out, const float* params, int n,
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
   if (e != cudaSuccess) return e;
-  int sms = 0;
-  if ((e = sm_count(&sms)) != cudaSuccess) return e;
-  const long long tiles = static_cast<long long>((h + TH - 1) / TH) *
-                          ((w + TW - 1) / TW) * n;
-  const int grid = static_cast<int>(tiles < sms ? tiles : sms);  // 1 per SM
+  int grid = 0;                           // one block per SM
+  if ((e = persistent_grid<TH, TW>(n, h, w, &grid)) != cudaSuccess) return e;
   kernel<<<grid, NT, SMEM_BYTES, stream>>>(y, params, out, n, h, w, f_top,
                                            f_bottom, f_left, f_right);
   return cudaGetLastError();

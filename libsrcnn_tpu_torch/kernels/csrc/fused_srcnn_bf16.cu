@@ -1,11 +1,11 @@
 // Fused SRCNN 9-1-5 forward on the bf16 tensor cores, for Hopper (sm_90a):
 // the throughput tiers.
 //
-// Replaces libsrcnn_tpu/kernels/fused_conv.py::_kernel in its three bf16
-// forms, each a template instance here:
-//   K2  split    precision=DEFAULT, pack=None: every GEMM operand split into
+// Replaces libsrcnn_tpu/kernels/fused_conv.py::_kernel in its bf16 forms:
+//   K2  split    precision=DEFAULT, pack=None: every activation split into
 //                hi = bf16(x) and lo = bf16(x - hi), two bf16 passes summed
-//                in f32 (`_dot`, conv3 at :310-320);
+//                in f32 (`_dot`, :121-152, conv3 at :310-320); a wgmma
+//                kernel of its own, fused_srcnn_split_kernel (below);
 //   K3  bf16x1   pack="pair": every operand rounded to bf16 once, one pass
 //                (:213-242; the i32 pair words are a Mosaic store
 //                workaround and are not carried over);
@@ -14,30 +14,66 @@
 //                row-duplicated bf16(w1) (:243-269);
 //   K3n narrow   K3 on a narrower output tile (the NARROW geometry,
 //                :60-73); its output is bit-identical to K3's.
+// K3, K3h and K3n are instances of the mma.sync template
+// fused_srcnn_bf16_kernel<MODE, TW, STAGE>.
 // Per output pixel of an [h, w] plane: conv1 9x9 1->64 + b1, ReLU; conv2
 // 1x1 64->32 + b2, ReLU; the reference's c2 border clamp gated by the edge
-// flags; conv3 5x5 32->1 + b3, clamp to [0, 255].  Every GEMM operand is
-// bf16: K2 and K3h split each activation into hi and lo, K3 and K3n round
-// it once (the TPU kernel's `_dot`, :121-152, and conv3 at :310-320).  Weights are rounded to
+// flags; conv3 5x5 32->1 + b3, clamp to [0, 255].  Weights are rounded to
 // bf16 (round to nearest even, __float2bfloat16_rn) on their way into
 // shared memory; biases and every accumulation are f32.
 // Input: n Y planes with a 6 px halo, [n, h+12, w+12] f32, contiguous; one
-// launch covers the batch (blockIdx.z is the plane).
+// launch covers the batch.
 //
-// What bounds it: operations.  8,032 MACs per output pixel, 33.7 G at
+// What bounds them: operations.  8,032 MACs per output pixel, 33.7 G at
 // 2048^2: 0.068 ms of the card's 989 TFLOP/s dense bf16 for one pass, 0.14
 // ms for the two of the split forms, against 0.01 ms to move the ~34 MB of
-// planes.  This version reaches the tensor cores through mma.sync.m16n8k16
-// (not wgmma), builds conv1's A fragments with 16-bit shared-memory loads
-// (an im2col done in registers), recomputes each tile's c2 ring (1.42x for
-// 12 x 60 tiles) and runs one 256-thread block per SM, so it sits well
-// above that bound (PERF.md).
+// planes.
 //
-// Design:
+// K2, on wgmma (the design of K1, fused_srcnn.cu, in bf16 with two passes):
+// * A persistent grid: min(tiles, SMs) blocks of 256 threads (two
+//   warpgroups), each walking the 24 x 60 output tiles of all n planes with
+//   a static stride; 64-bit tile walk and offsets.  The next tile's 36 x 72
+//   window is copied with cp.async while this tile computes, then split
+//   once into bf16 hi and lo planes.
+// * The B operands go to shared memory once per block, rounded to bf16, as
+//   wgmma's K-major operands without swizzle: w1 [96 x 64], w2 [64 x 32],
+//   w3 as the tap GEMM [32 x 32] (column n = tap 5 dy + dx, 25..31 zero);
+//   18,432 bytes.  The weights are not split; the activations are.
+// * M is ring positions: one ring row of 64 columns is one m64 tile, and
+//   warpgroup v takes ring rows v, v + 2, ...  wgmma.m64nNk16.f32.bf16.bf16
+//   with A from registers.  Each GEMM is two passes into one f32
+//   accumulator over the whole of K, lo*bf16(w) first, then hi*bf16(w), so
+//   the small products meet an empty accumulator (as K1 orders its passes).
+// * conv1's A operand, an im2col into registers.  Its K order pairs the
+//   taps (dy, dx) and (dy, dx + 1) of one window row (9 rows x 5 pairs, the
+//   pair at dx 8 with a zero row, 45 pairs padded to 48: K 96, the same six
+//   k16 steps as 81 taps padded), so each A register, two adjacent k, is
+//   one aligned 32-bit shared load: a ring column of odd parity reads a
+//   copy of the hi and lo planes that starts one element later.  The lo
+//   fragments are loaded first, the hi fragments while the tensor cores run
+//   the lo pass.
+// * conv2 and the tap GEMM take A straight from the previous accumulators:
+//   the f32 m64 accumulator of a warp holds columns 2q, 2q + 1 of each
+//   8-wide n-group, which is the bf16 A layout of k16 step j / 2 (a0 / a1
+//   for even n-groups j, a2 / a3 for odd), so no B row is permuted.  h1 and
+//   c2 are split in registers and never touch shared memory; only conv3's
+//   25 tap planes do.
+// * The ring clamp on the tap planes and conv3's fixed-order shift-add are
+//   K1's; every pixel's sums run in one fixed order whatever tile it sits
+//   in (the chunked path and serving rely on that).
+// * Geometry: 24 x 60 output tile, 28 x 64 c2 ring (1.24x recomputation),
+//   36 x 72 window.  Tap planes 179,600 B; B operands 18,432 B; biases 512
+//   B; the f32 window 10,368 B and four bf16 planes 20,736 B; 230,272 B,
+//   one block per SM.  Of 16 x 60 with two warpgroups, 20 x 60 with three,
+//   and 24 x 60 with two, the last was the fastest; issuing the next ring
+//   row's conv1 lo pass before this row's epilogue (one wgmma group kept in
+//   flight) was slower (PERF.md).
+//
+// The mma.sync kernels (K3, K3h, K3n):
 // * One block (256 threads, 8 warps) per 12 x TW output tile; the c2 ring is
 //   16 x (TW+4).  The block stages its input window, rounded once to bf16
-//   (hi, and lo where the mode splits; packed hi | lo << 16 for K3h), the
-//   weights as mma B fragments, and the biases in shared memory.
+//   (hi; packed hi | lo << 16 for K3h), the weights as mma B fragments, and
+//   the biases in shared memory.
 // * conv1, conv2 and conv3's tap products are GEMMs with M = ring positions
 //   (a warp takes two 16-position m-tiles at a time): conv1 K = 81 taps
 //   (162 for K3h, padded with zero-weight rows to a multiple of 16), N = 64;
@@ -62,26 +98,28 @@
 //   fused_conv.py::_kernel_band / _pair_tile (:491-597): K3's per-tile
 //   work, one block per band of rows (see the kernel).
 // * K6's cuts of K2 and K3: the STAGE template argument stops the kernel
-//   after its window and B fragments are in shared memory (LOAD), after
-//   conv1, conv2 or the tap GEMM (TAPS); srcnn_common.cuh says what a cut
-//   writes.  The TPU tool's roll and im2col stages have no counterpart:
-//   there is no lane rotate, and conv1's im2col is done in registers.
-//   The production kernels are the FULL instances.
+//   after its window and weights are in shared memory (LOAD), after conv1,
+//   conv2 or the tap GEMM (TAPS); srcnn_common.cuh says what a cut writes.
+//   The TPU tool's roll and im2col stages have no counterpart: there is no
+//   lane rotate, and conv1's im2col is done in registers.  The production
+//   kernels are the FULL instances.
 //
-// Later work: wgmma with the window in shared memory as its B operand, TMA,
-// two blocks per SM.
+// Later work on K3: K2's wgmma design in one pass.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "srcnn_common.cuh"
+#include "srcnn_wgmma.cuh"
 
 namespace {
 
 using namespace srcnn;
 
-enum Mode { SPLIT = 0, BF16X1 = 1, HILO = 2 };
+// the mma.sync kernels' modes; chip_smoke.py reads the values from the
+// instances' names in the SASS
+enum Mode { BF16X1 = 1, HILO = 2 };
 
 constexpr int TH = 12;                    // output tile rows
 constexpr int NT = 256;                   // threads per block
@@ -189,7 +227,7 @@ __device__ __forceinline__ void stage_params(const float* __restrict__ params,
 // its per-pixel value to `out` instead and leaves gs alone.
 template <int MODE, int TW, int STAGE>
 __device__ __forceinline__ void ring_gemms(
-    const uint16_t* winh, const uint16_t* winl, const uint32_t* winp,
+    const uint16_t* winh, const uint32_t* winp,
     const uint2* w1f, const uint2* w2f, const uint2* w3f, const float* b1s,
     float* gs, float* __restrict__ out, int r0, int q0, int h, int w,
     int t) {
@@ -238,36 +276,31 @@ __device__ __forceinline__ void ring_gemms(
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[u][j][e] = 0.f;
 
-    // K2 runs the hi pass, then the lo pass, into the same accumulators
 #pragma unroll
-    for (int pass = 0; pass < (MODE == SPLIT ? 2 : 1); ++pass) {
-      const uint16_t* win = pass ? winl : winh;
+    for (int s = 0; s < KS1; ++s) {
+      uint32_t a[MT][4];
 #pragma unroll
-      for (int s = 0; s < KS1; ++s) {
-        uint32_t a[MT][4];
-#pragma unroll
-        for (int u = 0; u < MT; ++u) {
-          const int b = base[u];
-          if (MODE == HILO) {
-            a[u][0] = winp[b + toff[s][0]];
-            a[u][1] = winp[b + 8 + toff[s][0]];
-            a[u][2] = winp[b + toff[s][2]];
-            a[u][3] = winp[b + 8 + toff[s][2]];
-          } else {
-            a[u][0] = win[b + toff[s][0]] | (uint32_t(win[b + toff[s][1]]) << 16);
-            a[u][1] = win[b + 8 + toff[s][0]] |
-                      (uint32_t(win[b + 8 + toff[s][1]]) << 16);
-            a[u][2] = win[b + toff[s][2]] | (uint32_t(win[b + toff[s][3]]) << 16);
-            a[u][3] = win[b + 8 + toff[s][2]] |
-                      (uint32_t(win[b + 8 + toff[s][3]]) << 16);
-          }
+      for (int u = 0; u < MT; ++u) {
+        const int b = base[u];
+        if (MODE == HILO) {
+          a[u][0] = winp[b + toff[s][0]];
+          a[u][1] = winp[b + 8 + toff[s][0]];
+          a[u][2] = winp[b + toff[s][2]];
+          a[u][3] = winp[b + 8 + toff[s][2]];
+        } else {
+          a[u][0] = winh[b + toff[s][0]] | (uint32_t(winh[b + toff[s][1]]) << 16);
+          a[u][1] = winh[b + 8 + toff[s][0]] |
+                    (uint32_t(winh[b + 8 + toff[s][1]]) << 16);
+          a[u][2] = winh[b + toff[s][2]] | (uint32_t(winh[b + toff[s][3]]) << 16);
+          a[u][3] = winh[b + 8 + toff[s][2]] |
+                    (uint32_t(winh[b + 8 + toff[s][3]]) << 16);
         }
+      }
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const uint2 bf = w1f[(s * 8 + j) * 32 + lane];
+      for (int j = 0; j < 8; ++j) {
+        const uint2 bf = w1f[(s * 8 + j) * 32 + lane];
 #pragma unroll
-          for (int u = 0; u < MT; ++u) mma_bf16(acc[u][j], a[u], bf);
-        }
+        for (int u = 0; u < MT; ++u) mma_bf16(acc[u][j], a[u], bf);
       }
     }
 
@@ -455,7 +488,6 @@ fused_srcnn_bf16_kernel(const float* __restrict__ y,
   float* b3s = b1s + C1 + C2;
   unsigned char* winb = reinterpret_cast<unsigned char*>(b1s) + G::B_BIAS;
   uint16_t* winh = reinterpret_cast<uint16_t*>(winb);       // bf16 hi
-  uint16_t* winl = winh + WH * WW;                          // bf16 lo (K2)
   uint32_t* winp = reinterpret_cast<uint32_t*>(winb);       // hi | lo << 16 (K3h)
 
   const int t = threadIdx.x;
@@ -475,9 +507,6 @@ fused_srcnn_bf16_kernel(const float* __restrict__ y,
     const float hi = bf16_round(v);
     if (MODE == BF16X1) {
       winh[i] = bf16_bits(v);
-    } else if (MODE == SPLIT) {
-      winh[i] = bf16_bits(v);
-      winl[i] = bf16_bits(v - hi);
     } else {
       winp[i] = bf16_bits(v) | (bf16_bits(v - hi) << 16);
     }
@@ -490,15 +519,14 @@ fused_srcnn_bf16_kernel(const float* __restrict__ y,
     for (int s = t; s < TH * TW; s += NT) {
       const int a = s / TW + 2, b = s % TW + 2;
       const int i = (a + 4) * WW + b + 4;
-      float v = __bfloat162float(__ushort_as_bfloat16(winh[i]));
-      if (MODE == SPLIT) v += __bfloat162float(__ushort_as_bfloat16(winl[i]));
-      cut_store(out, a, b, r0, q0, TH, TW, h, w, v);
+      cut_store(out, a, b, r0, q0, TH, TW, h, w,
+                __bfloat162float(__ushort_as_bfloat16(winh[i])));
     }
     return;
   }
 
-  ring_gemms<MODE, TW, STAGE>(winh, winl, winp, w1f, w2f, w3f, b1s, gs, out,
-                              r0, q0, h, w, t);
+  ring_gemms<MODE, TW, STAGE>(winh, winp, w1f, w2f, w3f, b1s, gs, out, r0,
+                              q0, h, w, t);
   if constexpr (STAGE != FULL) return;
   __syncthreads();
 
@@ -564,8 +592,8 @@ fused_srcnn_band_kernel(const float* __restrict__ y,
       }
       __syncthreads();
 
-      ring_gemms<BF16X1, TW, FULL>(winh, nullptr, nullptr, w1f, w2f, w3f,
-                                   b1s, gs, out, r0, q0, h, w, t);
+      ring_gemms<BF16X1, TW, FULL>(winh, nullptr, w1f, w2f, w3f, b1s, gs,
+                                   out, r0, q0, h, w, t);
       __syncthreads();
       ring_clamp<G::RH, G::RW, NT, 25>(gs, GS, r0, q0, h, w, f_top,
                                        f_bottom, f_left, f_right);
@@ -575,6 +603,401 @@ fused_srcnn_band_kernel(const float* __restrict__ y,
   }
 }
 #endif  // SRCNN_PROFILING
+
+// ---- K2: split-bf16x2 on wgmma (see the file's notes) ----------------------
+
+namespace k2 {
+
+constexpr int TH = 24, TW = 60;           // output tile
+constexpr int NT = 256;                   // threads per block: two warpgroups
+constexpr int NWG = NT / 128;
+constexpr int RH = TH + 4, RW = TW + 4;   // c2 ring tile, 28 x 64
+constexpr int WH = RH + 8, WW = RW + 8;   // input window, 36 x 72
+constexpr int GS = RH * RW + 4;           // tap-plane stride: spreads banks
+constexpr int NPAIR = 45;                 // conv1's taps as pairs: 9 rows x 5
+constexpr int K1P = 96;                   // conv1's K: the 45 pairs padded to 48
+constexpr int KS1 = K1P / 16, KS2 = C1 / 16, KS3 = C2 / 16;  // k16 steps: 6, 4, 2
+constexpr int NG = 32;                    // the tap GEMM's N, 25 taps padded
+static_assert(RW == 64 && RH % NWG == 0 && WW % 2 == 0, "one m64 tile per ring row");
+
+// Shared memory, bytes.  A B operand of K rows and N columns takes
+// (K / 8) * (N / 8) core matrices of 128 bytes.
+constexpr int B_G = 25 * GS * 4;
+constexpr int B_W1 = K1P * C1 * 2;
+constexpr int B_W2 = C1 * C2 * 2;
+constexpr int B_W3 = C2 * NG * 2;
+constexpr int B_BIAS = 512;               // b1 [64], b2 [32], b3
+constexpr int B_RAW = WH * WW * 4;
+constexpr int B_PLANE = WH * WW * 2;      // one bf16 window plane
+constexpr int SM_W1 = (B_G + 1023) / 1024 * 1024;
+constexpr int SM_W2 = SM_W1 + B_W1;
+constexpr int SM_W3 = SM_W2 + B_W2;
+constexpr int SM_BIAS = SM_W3 + B_W3;
+constexpr int SM_RAW = SM_BIAS + B_BIAS;
+constexpr int SM_WIN = SM_RAW + B_RAW;   // planes hi, hi from +1, lo, lo from +1
+constexpr size_t SMEM = SM_WIN + 4 * B_PLANE;               // 230,272
+// more than half of the 232,448 B an SM holds: one block per SM
+static_assert(SMEM <= 232448 && 2 * SMEM > 232448 && B_PLANE % 16 == 0,
+              "shared memory");
+
+// (x0, x1) -> hi = bf16(x) and lo = bf16(x - hi), two per register, x0 in
+// the low halves; x - hi is exact in f32
+__device__ __forceinline__ void split_pair(float x0, float x1, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h2 = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h2);
+  const __nv_bfloat162 l2 = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h2);
+  lo = *reinterpret_cast<const uint32_t*>(&l2);
+}
+
+// Word index of elements (k, k + 1), k even, of a K-major bf16 B operand
+// with KC = K / 8 core matrices along K: core matrix (n / 8, k / 8), row
+// n % 8, word (k % 8) / 2.
+template <int KC>
+__device__ __forceinline__ int b_word2(int k, int n) {
+  return (((n >> 3) * KC + (k >> 3)) << 5) + ((n & 7) << 2) + ((k & 7) >> 1);
+}
+
+// The three GEMMs' B operands, rounded to bf16, and the biases.  conv1's
+// GEMM row k is tap (dy, dx) = (p / 5, 2 (p % 5) + k % 2) of pair p = k / 2
+// (zero past dx 8 and past pair 44).
+__device__ void stage_params(const float* __restrict__ params,
+                             unsigned char* smem, int t) {
+  uint32_t* w1 = reinterpret_cast<uint32_t*>(smem + SM_W1);
+  uint32_t* w2 = reinterpret_cast<uint32_t*>(smem + SM_W2);
+  uint32_t* w3 = reinterpret_cast<uint32_t*>(smem + SM_W3);
+  float* bias = reinterpret_cast<float*>(smem + SM_BIAS);
+  for (int i = t; i < K1P / 2 * C1; i += NT) {
+    const int p = i / C1, n = i % C1;
+    float v0 = 0.f, v1 = 0.f;
+    if (p < NPAIR) {
+      const int dx = 2 * (p % 5), tap = (p / 5) * 9 + dx;
+      v0 = params[OFF_W1 + tap * C1 + n];
+      if (dx + 1 < 9) v1 = params[OFF_W1 + (tap + 1) * C1 + n];
+    }
+    w1[b_word2<K1P / 8>(2 * p, n)] = pack_bf16(v0, v1);
+  }
+  for (int i = t; i < C1 / 2 * C2; i += NT) {       // row k = h1 channel k
+    const int k = 2 * (i / C2), n = i % C2;
+    w2[b_word2<C1 / 8>(k, n)] = pack_bf16(params[OFF_W2 + k * C2 + n],
+                                          params[OFF_W2 + (k + 1) * C2 + n]);
+  }
+  for (int i = t; i < C2 / 2 * NG; i += NT) {       // row k = c2 channel k,
+    const int k = 2 * (i / NG), n = i % NG;         // column n = tap 5 dy + dx
+    const float* w3p = params + OFF_W3 + n * C2 + k;
+    w3[b_word2<C2 / 8>(k, n)] = n < 25 ? pack_bf16(w3p[0], w3p[1]) : 0u;
+  }
+  for (int i = t; i < C1 + C2 + 1; i += NT)
+    bias[i] = i < C1 ? params[OFF_B1 + i]
+                     : i < C1 + C2 ? params[OFF_B2 + i - C1] : params[OFF_B3];
+}
+
+// The window, split once: planes hi and lo, and each again from element 1
+// on, so that a tap pair that starts at an odd element is an aligned word
+// there.
+__device__ __forceinline__ void split_window(const float* raw, unsigned char* win,
+                                             int t) {
+  uint16_t* hi = reinterpret_cast<uint16_t*>(win);
+  uint16_t* hi1 = reinterpret_cast<uint16_t*>(win + B_PLANE);
+  uint16_t* lo = reinterpret_cast<uint16_t*>(win + 2 * B_PLANE);
+  uint16_t* lo1 = reinterpret_cast<uint16_t*>(win + 3 * B_PLANE);
+  for (int i = t; i < WH * WW; i += NT) {
+    const float v = raw[i];
+    const uint16_t hb = bf16_bits(v), lb = bf16_bits(v - bf16_round(v));
+    hi[i] = hb;
+    lo[i] = lb;
+    if (i > 0) {
+      hi1[i - 1] = hb;
+      lo1[i - 1] = lb;
+    } else {
+      hi1[WH * WW - 1] = lo1[WH * WW - 1] = 0;
+    }
+  }
+}
+
+// d += a * b over the KS k16 steps, committed as one group
+template <int KS, int NREG>
+__device__ __forceinline__ void bf16_pass(float (&d)[NREG], const uint32_t (&a)[KS][4],
+                                          uint64_t b) {
+  wgmma_fence();
+#pragma unroll
+  for (int s = 0; s < KS; ++s) {
+    if constexpr (NREG == 32)
+      wgmma_n64_bf16(d, a[s], at_step(b, s));
+    else
+      wgmma_n32_bf16(d, a[s], at_step(b, s));
+  }
+  wgmma_commit();
+}
+
+// One GEMM of a warpgroup's m64 tile in split-bf16x2: d = lo*b over all of
+// K, then + hi*b, in one f32 accumulator (the small products meet an empty
+// one).  `fill_hi` fills ah while the tensor cores run the lo pass.
+template <int KS, int NREG, typename FillHi>
+__device__ __forceinline__ void gemm_split(float (&d)[NREG], uint32_t (&ah)[KS][4],
+                                           uint32_t (&al)[KS][4], uint64_t b,
+                                           FillHi fill_hi) {
+#pragma unroll
+  for (int i = 0; i < NREG; ++i) d[i] = 0.f;
+  bf16_pass(d, al, b);
+  fill_hi(ah);
+  bf16_pass(d, ah, b);
+  wgmma_wait<0>();
+  fence_regs(d);
+  fence_regs(ah);
+  fence_regs(al);
+}
+
+// Accumulators -> the next GEMM's A fragments.  The f32 accumulator of an
+// m64nN tile holds, in n-group j, rows (g, g + 8) x columns (8j + 2q, 8j +
+// 2q + 1): the bf16 A layout of k16 step j / 2 (a0 / a1 for even j, a2 /
+// a3 for odd j), so no B row is permuted.  relu(acc + bias), split; a
+// cut's per-row sums.
+template <int NS>
+__device__ __forceinline__ void epilogue(const float (&acc)[8 * NS], const float* bias,
+                                         int q, uint32_t (&ah)[NS][4],
+                                         uint32_t (&al)[NS][4], float& sum0,
+                                         float& sum8) {
+#pragma unroll
+  for (int j = 0; j < 2 * NS; ++j) {
+    const int c = 8 * j + 2 * q, s = j / 2, r = 2 * (j % 2);
+    const float v0 = fmaxf(acc[4 * j + 0] + bias[c], 0.f);
+    const float v1 = fmaxf(acc[4 * j + 1] + bias[c + 1], 0.f);
+    const float v2 = fmaxf(acc[4 * j + 2] + bias[c], 0.f);
+    const float v3 = fmaxf(acc[4 * j + 3] + bias[c + 1], 0.f);
+    sum0 += v0 + v1;
+    sum8 += v2 + v3;
+    split_pair(v0, v1, ah[s][r], al[s][r]);
+    split_pair(v2, v3, ah[s][r + 1], al[s][r + 1]);
+  }
+}
+
+struct BDescs {
+  uint64_t w1, w2, w3;
+};
+
+// conv1, conv2 and the tap GEMM over the tile's c2 ring, from the split
+// window: the 25 tap planes into gs.  Warpgroup wg takes ring rows wg, wg +
+// NWG, ...; each is one m64 tile.  A cut (STAGE < FULL) writes its
+// per-pixel value to `out` instead and leaves gs alone.
+template <int STAGE>
+__device__ __forceinline__ void ring_gemms(const unsigned char* win,
+                                           const float* b1s, const BDescs& bd,
+                                           float* gs, float* __restrict__ out,
+                                           int r0, int q0, int h, int w, int t) {
+  const float* b2s = b1s + C1;
+  const int wg = t / 128, warp = (t % 128) / 32, lane = t % 32;
+  const int g = lane / 4, q = lane % 4;   // fragment row group, column pair
+  const int mrow = 16 * warp + g;         // this lane's first row of an m64 tile
+  // Ring column mrow's tap pairs start at elements of its parity; an odd
+  // one reads the planes that start at element 1, where they are even.
+  const int par = mrow & 1;
+  const uint32_t* wh = reinterpret_cast<const uint32_t*>(win + par * B_PLANE);
+  const uint32_t* wl = reinterpret_cast<const uint32_t*>(win + (2 + par) * B_PLANE);
+
+  // word offsets of the tap pairs this lane feeds to conv1's A fragments:
+  // pair 8s + q (columns 2q, 2q + 1 of k16 step s) and pair 8s + q + 4
+  // (pairs past 44 read pair 0: finite, and their weights are zero)
+  int toff[KS1][2];
+#pragma unroll
+  for (int s = 0; s < KS1; ++s)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      int p = 8 * s + q + 4 * i;
+      p = p < NPAIR ? p : 0;
+      toff[s][i] = ((p / 5) * WW + 2 * (p % 5)) / 2;
+    }
+
+#pragma unroll 1
+  for (int a = wg; a < RH; a += NWG) {
+    float cut0 = 0.f, cut8 = 0.f;         // a cut's sums of rows g, g + 8
+    // a cut's store: row g of this m64 tile is ring column mrow, row g + 8
+    // eight columns to its right
+    const auto store_cut = [&](float v0, float v8) {
+      v0 = quad_sum(v0);
+      v8 = quad_sum(v8);
+      if (q == 0) {
+        cut_store(out, a, mrow, r0, q0, TH, TW, h, w, v0);
+        cut_store(out, a, mrow + 8, r0, q0, TH, TW, h, w, v8);
+      }
+    };
+    // conv1's A fragments of one plane: rows (g, g + 8) of k16 step s are
+    // ring columns (mrow, mrow + 8), four words apart, at its two pairs
+    const int base = (a * WW + mrow - par) / 2;
+    const auto im2col = [&](const uint32_t* plane, uint32_t (&frag)[KS1][4]) {
+#pragma unroll
+      for (int s = 0; s < KS1; ++s)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          frag[s][2 * i] = plane[base + toff[s][i]];
+          frag[s][2 * i + 1] = plane[base + toff[s][i] + 4];
+        }
+    };
+
+    // ---- conv1: [64 x 96] x [96 x 64]; the hi fragments are loaded while
+    // the lo pass runs ----
+    float acc1[32];
+    {
+      uint32_t ah[KS1][4], al[KS1][4];
+      im2col(wl, al);
+      gemm_split(acc1, ah, al, bd.w1, [&](uint32_t (&f)[KS1][4]) { im2col(wh, f); });
+    }
+    // ---- h1 = ReLU(conv1 + b1) -> conv2's A fragments ----
+    uint32_t hh[KS2][4], hl[KS2][4];
+    epilogue<KS2>(acc1, b1s, q, hh, hl, cut0, cut8);
+    if constexpr (STAGE == CONV1) {       // cut: sum of the 64 h1 channels
+      store_cut(cut0, cut8);
+      continue;
+    }
+
+    // ---- conv2: [64 x 64] x [64 x 32] ----
+    float acc2[16];
+    gemm_split(acc2, hh, hl, bd.w2, [](uint32_t (&)[KS2][4]) {});
+    uint32_t ch[KS3][4], cl[KS3][4];
+    cut0 = cut8 = 0.f;
+    epilogue<KS3>(acc2, b2s, q, ch, cl, cut0, cut8);
+    if constexpr (STAGE == CONV2) {       // cut: sum of the 32 c2 channels
+      store_cut(cut0, cut8);
+      continue;
+    }
+
+    // ---- conv3's tap products: [64 x 32] x [32 x 25 (32)] ----
+    float acc3[16];
+    gemm_split(acc3, ch, cl, bd.w3, [](uint32_t (&)[KS3][4]) {});
+    if constexpr (STAGE == TAPS) {        // cut: sum of the 25 taps
+      cut0 = cut8 = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int k = 8 * j + 2 * q;
+        if (k < 25) {
+          cut0 += acc3[4 * j];
+          cut8 += acc3[4 * j + 2];
+        }
+        if (k + 1 < 25) {
+          cut0 += acc3[4 * j + 1];
+          cut8 += acc3[4 * j + 3];
+        }
+      }
+      store_cut(cut0, cut8);
+      continue;
+    }
+
+    // ---- the 25 tap planes -> shared memory ----
+    const int pos = a * RW + mrow;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int k = 8 * j + 2 * q;
+      if (k < 25) {
+        gs[k * GS + pos] = acc3[4 * j];
+        gs[k * GS + pos + 8] = acc3[4 * j + 2];
+      }
+      if (k + 1 < 25) {
+        gs[(k + 1) * GS + pos] = acc3[4 * j + 1];
+        gs[(k + 1) * GS + pos + 8] = acc3[4 * j + 3];
+      }
+    }
+  }
+}
+
+// conv3: shift-add of the (clamped) tap planes, + b3, clamp to [0, 255];
+// K1's (fused_srcnn.cu), not inlined for the same reason
+__device__ __noinline__ void conv3_out(const float* gs, float b3,
+                                       float* __restrict__ out, int r0, int q0,
+                                       int h, int w, int t) {
+  for (int s = t; s < TH * TW; s += NT) {
+    const int ty = s / TW, tx = s % TW;
+    const float* gp = gs + ty * RW + tx;
+    float o = 0.f;
+#pragma unroll
+    for (int dy = 0; dy < 5; ++dy)
+#pragma unroll
+      for (int dx = 0; dx < 5; ++dx) o += gp[(dy * 5 + dx) * GS + dy * RW + dx];
+    const int orow = r0 + ty, ocol = q0 + tx;
+    if (orow < h && ocol < w)
+      out[static_cast<long long>(orow) * w + ocol] = fminf(fmaxf(o + b3, 0.f), 255.f);
+  }
+}
+
+template <int STAGE = FULL>
+__global__ void __launch_bounds__(NT, 1)
+fused_srcnn_split_kernel(const float* __restrict__ y,
+                         const float* __restrict__ params,
+                         float* __restrict__ out, int n, int h, int w,
+                         int f_top, int f_bottom, int f_left, int f_right) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  float* gs = reinterpret_cast<float*>(smem);                 // [25][GS]
+  const float* b1s = reinterpret_cast<const float*>(smem + SM_BIAS);
+  float* raw = reinterpret_cast<float*>(smem + SM_RAW);       // [WH][WW]
+  unsigned char* win = smem + SM_WIN;
+
+  const int t = threadIdx.x;
+  const int tr = (h + TH - 1) / TH, tc = (w + TW - 1) / TW;
+  const long long tiles = static_cast<long long>(tr) * tc * n;
+
+  long long tile = blockIdx.x;
+  fetch_window<WH, WW, NT>(raw, y, tile_at<TH, TW>(tile, tr, tc), h, w, t);
+  stage_params(params, smem, t);
+  // the B operands are read by wgmma, through the async proxy
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  const BDescs bd = {b_desc(smem + SM_W1, (K1P / 8) * 128),
+                     b_desc(smem + SM_W2, (C1 / 8) * 128),
+                     b_desc(smem + SM_W3, (C2 / 8) * 128)};
+
+  for (; tile < tiles; tile += gridDim.x) {
+    const Tile tl = tile_at<TH, TW>(tile, tr, tc);
+    float* po = out + static_cast<long long>(tl.plane) * h * w;
+
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();
+    split_window(raw, win, t);
+    __syncthreads();
+    if (tile + gridDim.x < tiles)         // the next tile's window, meanwhile
+      fetch_window<WH, WW, NT>(raw, y, tile_at<TH, TW>(tile + gridDim.x, tr, tc),
+                               h, w, t);
+
+    if constexpr (STAGE == LOAD) {        // cut: the centre tap as split
+      const uint16_t* hi = reinterpret_cast<const uint16_t*>(win);
+      const uint16_t* lo = reinterpret_cast<const uint16_t*>(win + 2 * B_PLANE);
+      for (int s = t; s < TH * TW; s += NT) {
+        const int a = s / TW + 2, b = s % TW + 2;
+        const int i = (a + 4) * WW + b + 4;
+        cut_store(po, a, b, tl.r0, tl.q0, TH, TW, h, w,
+                  __bfloat162float(__ushort_as_bfloat16(hi[i])) +
+                      __bfloat162float(__ushort_as_bfloat16(lo[i])));
+      }
+    } else {
+      ring_gemms<STAGE>(win, b1s, bd, gs, po, tl.r0, tl.q0, h, w, t);
+    }
+    __syncthreads();
+    if constexpr (STAGE == FULL) {
+      // border clamp on the ring's tap planes (global c2 rows r0-2 ..
+      // r0+RH-3), then conv3
+      ring_clamp<RH, RW, NT, 25>(gs, GS, tl.r0, tl.q0, h, w, f_top, f_bottom,
+                                 f_left, f_right);
+      conv3_out(gs, b1s[C1 + C2], po, tl.r0, tl.q0, h, w, t);
+      __syncthreads();                    // G and the window are rewritten next
+    }
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+template <int STAGE>
+cudaError_t launch(const float* y, float* out, const float* params, int n,
+                   int h, int w, int f_top, int f_bottom, int f_left,
+                   int f_right, cudaStream_t stream) {
+  const auto kernel = fused_srcnn_split_kernel<STAGE>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
+  if (e != cudaSuccess) return e;
+  int grid = 0;                           // one block per SM
+  if ((e = persistent_grid<TH, TW>(n, h, w, &grid)) != cudaSuccess) return e;
+  kernel<<<grid, NT, SMEM, stream>>>(y, params, out, n, h, w, f_top, f_bottom,
+                                     f_left, f_right);
+  return cudaGetLastError();
+}
+
+}  // namespace k2
 
 template <int MODE, int TW, int STAGE = FULL>
 cudaError_t launch(const float* y, float* out, const float* params, int n,
@@ -590,6 +1013,16 @@ cudaError_t launch(const float* y, float* out, const float* params, int n,
       y, params, out, h, w, f_top, f_bottom, f_left, f_right);
   return cudaGetLastError();
 }
+
+#ifdef SRCNN_PROFILING
+template <int STAGE>
+cudaError_t launch_k3(const float* y, float* out, const float* params, int n,
+                      int h, int w, int f_top, int f_bottom, int f_left,
+                      int f_right, cudaStream_t stream) {
+  return launch<BF16X1, 60, STAGE>(y, out, params, n, h, w, f_top, f_bottom,
+                                   f_left, f_right, stream);
+}
+#endif
 
 }  // namespace
 
@@ -610,8 +1043,8 @@ int srcnn_bf16_forward(const float* y, float* out, const float* params,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (kernel) {
     case 0:
-      return launch<SPLIT, 60>(y, out, params, n, h, w, f_top, f_bottom,
-                               f_left, f_right, s);
+      return k2::launch<FULL>(y, out, params, n, h, w, f_top, f_bottom,
+                              f_left, f_right, s);
     case 1:
       return launch<BF16X1, 60>(y, out, params, n, h, w, f_top, f_bottom,
                                 f_left, f_right, s);
@@ -635,22 +1068,22 @@ int srcnn_bf16_cut_forward(const float* y, float* out, const float* params,
                            int f_left, int f_right, int kernel, int stage,
                            void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define SRCNN_CUT(M, S)                                                   \
+#define SRCNN_CUT(L, S)                                                   \
   case S:                                                                 \
-    return launch<M, 60, S>(y, out, params, n, h, w, f_top, f_bottom,     \
-                            f_left, f_right, s);
-#define SRCNN_CUTS(M)                                                     \
+    return L<S>(y, out, params, n, h, w, f_top, f_bottom, f_left,         \
+                f_right, s);
+#define SRCNN_CUTS(L)                                                     \
   switch (stage) {                                                        \
-    SRCNN_CUT(M, LOAD)                                                    \
-    SRCNN_CUT(M, CONV1)                                                   \
-    SRCNN_CUT(M, CONV2)                                                   \
-    SRCNN_CUT(M, TAPS)                                                    \
-    SRCNN_CUT(M, FULL)                                                    \
+    SRCNN_CUT(L, LOAD)                                                    \
+    SRCNN_CUT(L, CONV1)                                                   \
+    SRCNN_CUT(L, CONV2)                                                   \
+    SRCNN_CUT(L, TAPS)                                                    \
+    SRCNN_CUT(L, FULL)                                                    \
     default:                                                              \
       return cudaErrorInvalidValue;                                       \
   }
-  if (kernel == 0) SRCNN_CUTS(SPLIT)
-  if (kernel == 1) SRCNN_CUTS(BF16X1)
+  if (kernel == 0) SRCNN_CUTS(k2::launch)
+  if (kernel == 1) SRCNN_CUTS(launch_k3)
 #undef SRCNN_CUTS
 #undef SRCNN_CUT
   return cudaErrorInvalidValue;

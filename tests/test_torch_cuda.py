@@ -433,3 +433,75 @@ def test_full_cut_equals_production_kernel(cuda, kernel):
                fused_conv.forward_y(p, y, 130, 250, flags,
                                     precision=ablation.PRECISION[kernel]))
         assert torch.equal(got, ref)
+
+
+# --- K2 and K4 on wgmma: the persistent grid ---------------------------------
+
+
+def _k2_or_k4(kernel, p, y, h, w, flags=None):
+    if kernel == "K4":
+        return (fused_conv.forward_y_int8(p, y, h, w, flags),
+                fused_conv.forward_y_int8_reference(p, y, h, w, flags))
+    return (fused_conv.forward_y(p, y, h, w, flags, precision="split"),
+            fused_conv.forward_y_reference(p, y, h, w, flags, precision="split"))
+
+
+def _params_of(kernel, device):
+    from libsrcnn_tpu_torch.models import srcnn_int8
+
+    return srcnn_int8.load_params(device) if kernel == "K4" else srcnn.load_params(device)
+
+
+def _assert_k2_k4(kernel, got, ref):
+    if kernel == "K4":
+        assert torch.equal(got, ref)
+    else:
+        assert float((got - ref).abs().max()) <= SPLIT_ATOL
+
+
+@pytest.mark.parametrize("kernel", ["K2", "K4"])
+def test_k2_k4_persistent_grid_walks_many_tiles(cuda, kernel):
+    """One block per SM walks the tiles with a static stride: a 500x1000
+    plane (32 x 17 = 544 tiles of 16 x 60, more than two per SM) equals its
+    plain version, ragged edges included."""
+    p = _params_of(kernel, cuda)
+    y = _plane(512, 1012, 70, cuda)
+    before = fused_conv.launches_by[kernel]
+    got, ref = _k2_or_k4(kernel, p, y, 500, 1000, (1, 0, 0, 1))
+    torch.cuda.synchronize()
+    assert fused_conv.launches_by[kernel] == before + 1
+    _assert_k2_k4(kernel, got, ref)
+
+
+@pytest.mark.parametrize("kernel", ["K2", "K4"])
+def test_k2_k4_batch_with_zero_flags(cuda, kernel):
+    """A batch of 3 planes with every edge flag 0 (the ring keeps the real
+    halo) equals its plain version and each plane launched alone."""
+    p = _params_of(kernel, cuda)
+    ys = torch.stack([_plane(269, 313, 71 + i, cuda) for i in range(3)])
+    got, ref = _k2_or_k4(kernel, p, ys, 257, 301, (0, 0, 0, 0))
+    _assert_k2_k4(kernel, got, ref)
+    for i in range(3):
+        assert torch.equal(got[i], _k2_or_k4(kernel, p, ys[i], 257, 301, (0, 0, 0, 0))[0])
+
+
+@pytest.mark.parametrize("kernel", ["K2", "K4"])
+@pytest.mark.parametrize("stage", ["load", "conv1", "conv2", "taps", "full"])
+def test_k2_k4_launch_cut_matches_plain_version(cuda, kernel, stage):
+    """``ablation.launch_cut`` on weights packed once, over many tiles,
+    against the cut's plain version (``full``: the production kernel)."""
+    from libsrcnn_tpu_torch.kernels import ablation
+
+    p = _params_of(kernel, cuda)
+    packed = (fused_conv.pack_int8_params(p) if kernel == "K4"
+              else fused_conv.pack_params(p).to(cuda))
+    y = _plane(412, 712, 72, cuda)
+    out = torch.empty(400, 700, device=cuda)
+    ablation.launch_cut(kernel, stage, packed, y, out, (1, 1, 0, 0))
+    torch.cuda.synchronize()
+    if stage == "full":
+        ref = _k2_or_k4(kernel, p, y, 400, 700, (1, 1, 0, 0))[0]
+        assert torch.equal(out, ref)
+    else:
+        _assert_cut_close(kernel, out, ablation.forward_y_cut_reference(
+            kernel, stage, p, y, 400, 700, (1, 1, 0, 0)))

@@ -173,3 +173,99 @@ def test_import_leaves_jax_out():
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
+
+
+# --- the shim's allocation-failure codes (tests/test_api.py:177-214) ---------
+
+
+@pytest.mark.parametrize("exc", [MemoryError("host allocation failed"), "cuda_oom"],
+                         ids=["host", "device"])
+def test_process_srcnn_alloc_failure_is_minus_11(monkeypatch, exc):
+    """Reference parity: an output-buffer allocation failure returns -11
+    (`libsrcnn.cpp:883`), on the host or on the card."""
+    import torch
+    from libsrcnn_tpu_torch import api
+
+    if exc == "cuda_oom":
+        exc = torch.cuda.OutOfMemoryError("CUDA out of memory. Tried to allocate 1 TiB")
+
+    def oom(*a, **k):
+        raise exc
+
+    monkeypatch.setattr(api, "upscale", oom)
+    img = _image((20, 24, 3), 29)
+    assert T.process_srcnn(img.tobytes(), 24, 20, 3, 2.0) == (-11, None, None)
+
+
+def test_process_srcnn_conv_alloc_failure_is_minus_12(monkeypatch):
+    """Reference parity: a conv-map buffer allocation failure returns -12
+    and KEEPS the output buffer (`libsrcnn.cpp:895-912`)."""
+    from libsrcnn_tpu_torch import api
+
+    img = _image((20, 24, 3), 30)
+    real_out = T.upscale(img, 2.0, device="cpu")
+
+    class FailingConv:
+        def ravel(self):
+            raise MemoryError("conv buffer allocation failed")
+
+    monkeypatch.setattr(api, "upscale", lambda *a, **k: (real_out, FailingConv()))
+    rc, out, conv = T.process_srcnn(img.tobytes(), 24, 20, 3, 2.0)
+    assert rc == -12 and conv is None
+    np.testing.assert_array_equal(out, real_out.ravel())
+
+
+def test_process_srcnn_other_errors_propagate(monkeypatch):
+    """Only allocation failures map to codes; other errors stay exceptions."""
+    from libsrcnn_tpu_torch import api
+
+    def boom(*a, **k):
+        raise RuntimeError("not an allocation failure")
+
+    monkeypatch.setattr(api, "upscale", boom)
+    img = _image((20, 24, 3), 31)
+    with pytest.raises(RuntimeError, match="not an allocation"):
+        T.process_srcnn(img.tobytes(), 24, 20, 3, 2.0)
+
+
+# --- SRCNNConfig takes every field of the JAX package's ----------------------
+
+#: the port's one rename of a JAX config field (the TPU's Pallas kernel is
+#: the card's CUDA kernel here)
+RENAMED = {"use_pallas": "use_kernel"}
+
+
+def test_config_has_every_jax_field():
+    import dataclasses
+
+    jfields = {RENAMED.get(f.name, f.name): f.default for f in dataclasses.fields(J.SRCNNConfig)}
+    tfields = {f.name: f.default for f in dataclasses.fields(T.SRCNNConfig)}
+    assert tfields.keys() == jfields.keys()
+    assert tfields["lane_pack"] is None and jfields["lane_pack"] is None
+
+
+@pytest.mark.parametrize("lane_pack", [None, False, True])
+def test_config_built_for_jax_runs_in_the_port(lane_pack):
+    """A config written with every JAX field (use_pallas under its port
+    name) builds in the port; for srcnn lane_pack changes nothing."""
+    kw = dict(filter=2, step_scale=False, compute_dtype="float32", self_ensemble=False,
+              emit_conv_map=False, use_pallas=None, model="srcnn", lane_pack=lane_pack)
+    jcfg = J.SRCNNConfig(**kw)
+    tcfg = T.SRCNNConfig(**{RENAMED.get(k, k): v for k, v in kw.items()})
+    assert tcfg.lane_pack is lane_pack
+    img = _image((21, 18, 3), 32)
+    tout = T.upscale(img, 2.0, tcfg, device="cpu")
+    np.testing.assert_array_equal(tout, T.upscale(img, 2.0, device="cpu"))
+    assert _lsb(tout, J.upscale(img, 2.0, jcfg)) <= 1
+
+
+def test_chunked_refuses_lane_pack_as_jax_does():
+    img = _image((24, 20, 3), 33)
+    with pytest.raises(ValueError, match="lane_pack"):
+        J.upscale_chunked(img, 2.0, J.SRCNNConfig(lane_pack=True), band_rows=16)
+    with pytest.raises(ValueError, match="lane_pack"):
+        T.upscale_chunked(img, 2.0, T.SRCNNConfig(lane_pack=True), band_rows=16,
+                          device="cpu")
+    out, _ = T.upscale_chunked(img, 2.0, T.SRCNNConfig(lane_pack=False), band_rows=16,
+                               device="cpu")
+    np.testing.assert_array_equal(out, T.upscale(img, 2.0, device="cpu"))
