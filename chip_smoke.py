@@ -9,14 +9,16 @@ Drives the port's paths on the card through its hand-written CUDA kernels
 2. build the six kernel libraries from ``libsrcnn_tpu_torch/kernels/csrc``
    (one nvcc each, started together, sm_90a): the main path's three and
    their profiling builds (``-DSRCNN_PROFILING``: K5 and the stage cuts K6
-   / K7); print each kernel's registers and spills; dump each cut
-   instance's SASS (``cuobjdump``) and check that its count of HMMA / IMMA
-   / HGMMA / IGMMA / FFMA instructions grows with each stage the cut keeps,
-   so that no cut has been optimised away (the full kernel adds only adds,
-   so its count equals or passes the last cut's); check that the production
-   K1 runs on the tensor cores (HGMMA, ``wgmma``) and holds no FFMA, and that
-   the production K2 and K4 hold HGMMA / IGMMA (``wgmma`` on bf16 / s8) and
-   no HMMA / IMMA (``mma.sync``);
+   / K7); print each kernel instance's ptxas line (registers, spills) under
+   its kernel's name; dump each cut instance's SASS (``cuobjdump``) and
+   check that its count of HMMA / IMMA / HGMMA / IGMMA / FFMA instructions
+   grows with each stage the cut keeps, so that no cut has been optimised
+   away (the full kernel adds only adds, so its count equals or passes the
+   last cut's).  K1, K2, K3, K3n and K4 are ``wgmma`` kernels, and so is
+   K5: check that the production K1, K2, K3, K3n and K4, and K5 in the
+   profiling build, hold HGMMA / IGMMA (``wgmma`` on tf32 or bf16 / s8) and
+   no HMMA / IMMA (``mma.sync``), and that K1 holds no FFMA; K3h is the
+   last ``mma.sync`` kernel: check that it still holds HMMA;
 3. hold every kernel against its plain PyTorch version on the card at the
    listed plane shapes and edge flags, and a batch of 3 planes in one
    launch: K1 (exact) max abs error <= 2e-3; K2 (split) and K3h (split,
@@ -59,14 +61,15 @@ Drives the port's paths on the card through its hand-written CUDA kernels
    memory (both peaks and the chunked MP/s printed);
 8. time at 2048x2048 each kernel (its launch on weights packed once, and
    through its wrapper) beside its plain version, its bound (K1: 3xTF32 on
-   the tensor cores, and the f32 FMA bound beside it), K2's and K4's
-   figures before their redesign on ``wgmma`` and a library
+   the tensor cores, and the f32 FMA bound beside it), the figures of K2,
+   K4, K3, K3n and K5 before their redesign on ``wgmma`` and a library
    yardstick
    (K1, K2, K3h: the cuDNN f32 conv stack; K3, K3n: the cuDNN bf16 conv
    stack; K4: ``torch._int_mm`` on the three im2col'd layers), the frame
    pass and ``upscale_frames`` per frame at each tier (medians of
-   CUDA-event timings after a warm-up); K5 at both band heights beside
-   K3, its plain version and the cuDNN bf16 stack;
+   CUDA-event timings after a warm-up); K5 at ``tile_h`` 12, 64 and the
+   recommended ``BAND_TILE_H`` beside K3, its plain version and the cuDNN
+   bf16 stack;
 9. the kernel-profiling path, which launches K5-K7: with the launch
    counts at 0, the port's ``tools.kernel_ablation`` tables of K1, K2 and
    K3 and ``tools.int8_ablation``'s of K4 at 2048^2 (each stage's
@@ -123,9 +126,9 @@ PROFILING_KERNELS = {
     "K6": ("fused_srcnn.cu", "benchmarks/kernel_ablation.py:48"),
     "K7": ("fused_srcnn_int8.cu", "benchmarks/int8_ablation.py:43"),
 }
-# K2's and K4's 2048^2 launch times on their mma.sync design, before the
-# redesign on wgmma (PERF.md, PR 5's chip run on an H100 SXM at 700 W)
-BEFORE_WGMMA_MS = {"K2": 0.984, "K4": 0.755}
+# 2048^2 launch times on the mma.sync designs, before each kernel's
+# redesign on wgmma (PERF.md; K5 at tile_h 12; an H100 SXM at 700 W)
+BEFORE_WGMMA_MS = {"K2": 0.984, "K4": 0.755, "K3": 0.606, "K3n": 0.696, "K5": 0.963}
 # the cut that stands for K6 / K7 in the kernels record, the same in every
 # run so that the record compares across versions: K1's conv2 and K4's taps
 # (every cut's time is printed in phase 9)
@@ -220,47 +223,72 @@ def bound(kernel: str, n: int, h: int, w: int,
 
 SASS_OPS = ("HMMA", "IMMA", "HGMMA", "IGMMA", "FFMA")
 PROFILING_LIBS = ("fused_srcnn_prof", "fused_srcnn_bf16_prof", "fused_srcnn_int8_prof")
+MAIN_LIBS = ("fused_srcnn", "fused_srcnn_bf16", "fused_srcnn_int8")
+# the bf16 wgmma kernel's (MODE, TW) -> kernel; MODE 0 SPLIT, 1 BF16X1
+WGMMA_BF16 = {(0, 60): "K2", (1, 60): "K3", (1, 28): "K3n"}
+
+
+def kernel_of(symbol: str):
+    """(kernel, stage) of a kernel instance from its mangled name, or None.
+    Instances are told apart by their mangled template arguments:
+    ``fused_srcnn_kernel<STAGE>`` (K1),
+    ``fused_srcnn_wgmma_bf16_kernel<MODE, TW, STAGE>`` (K2, K3, K3n:
+    :data:`WGMMA_BF16`), ``fused_srcnn_bf16_kernel<MODE, TW>`` (MODE 2 at
+    TW 60: K3h, mma.sync), ``fused_srcnn_int8_kernel<STAGE>`` (K4); K5 is
+    ``fused_srcnn_band_kernel``."""
+    from libsrcnn_tpu_torch.kernels import ablation
+
+    stage_of = {code: name for name, code in ablation.STAGE_CODES.items()}
+    if "fused_srcnn_band_kernel" in symbol:
+        return ("K5", "full")
+    m = re.search(r"(fused_srcnn(?:_wgmma_bf16|_bf16|_int8)?)_kernelI((?:Li\d+E)+)E", symbol)
+    if not m:
+        return None
+    args = tuple(int(a) for a in re.findall(r"Li(\d+)E", m.group(2)))
+    if m.group(1) == "fused_srcnn_wgmma_bf16":
+        kernel, stage = WGMMA_BF16.get(args[:2]), args[2]
+    elif m.group(1) == "fused_srcnn_bf16":
+        kernel, stage = ("K3h" if args == (2, 60) else None), ablation.STAGE_CODES["full"]
+    else:
+        kernel = {"fused_srcnn": "K1", "fused_srcnn_int8": "K4"}[m.group(1)]
+        stage = args[0]
+    return None if kernel is None else (kernel, stage_of[stage])
 
 
 def sass_counts(_build, libs=PROFILING_LIBS) -> dict:
     """(kernel, stage) -> {op: count} of the HMMA / IMMA (``mma.sync``),
     HGMMA / IGMMA (``wgmma``: float / integer) and FFMA instructions in
     each kernel instance of ``libs`` (the profiling libraries' cuts by
-    default), from ``cuobjdump -sass`` (the toolkit nvcc came from).
-    Instances are told apart by their mangled template arguments:
-    ``fused_srcnn_kernel<STAGE>`` (K1),
-    ``fused_srcnn_split_kernel<STAGE>`` (K2),
-    ``fused_srcnn_bf16_kernel<MODE, TW, STAGE>`` (MODE 1 at TW 60: K3),
-    ``fused_srcnn_int8_kernel<STAGE>`` (K4)."""
-    from libsrcnn_tpu_torch.kernels import ablation
-
-    stage_of = {code: name for name, code in ablation.STAGE_CODES.items()}
+    default), from ``cuobjdump -sass`` (the toolkit nvcc came from);
+    instances are named by :func:`kernel_of`."""
     counts = {}
     for lib in libs:
         sass = subprocess.run([_build.tool("cuobjdump"), "-sass", _build.library_path(lib)],
                               capture_output=True, text=True, check=True).stdout
         key = None
         for line in sass.splitlines():
-            m = re.search(r"Function : \S*?(fused_srcnn(?:_bf16|_int8|_split)?)_kernelI"
-                          r"((?:Li\d+E)+)E", line)
-            if m:
-                args = [int(a) for a in re.findall(r"Li(\d+)E", m.group(2))]
-                if m.group(1) == "fused_srcnn_bf16":
-                    mode, tw, stage = args
-                    kernel = "K3" if (mode, tw) == (1, 60) else None
-                else:
-                    kernel = {"fused_srcnn": "K1", "fused_srcnn_split": "K2",
-                              "fused_srcnn_int8": "K4"}[m.group(1)]
-                    stage = args[0]
-                key = None if kernel is None else (kernel, stage_of[stage])
+            if "Function :" in line:
+                key = kernel_of(line)
                 if key:
                     counts[key] = dict.fromkeys(SASS_OPS, 0)
-                continue
-            if "Function :" in line:
-                key = None
             elif key and (op := re.search(r"\s(HMMA|IMMA|HGMMA|IGMMA|FFMA)[.\s]", line)):
                 counts[key][op.group(1)] += 1
     return counts
+
+
+def ptxas_lines(log: str) -> list[tuple[str, str]]:
+    """(instance, line) of each registers or spill line of a ptxas -v log:
+    the instance is its kernel and stage (:func:`kernel_of`), or the
+    function's mangled name."""
+    out, fn = [], "?"
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)", line)
+        if m:
+            key = kernel_of(m.group(1))
+            fn = f"{key[0]} {key[1]}" if key else m.group(1)
+        elif "registers" in line or "spill" in line:
+            out.append((fn, line.strip()))
+    return out
 
 
 def main() -> int:
@@ -292,9 +320,8 @@ def main() -> int:
           f"each also with {' '.join(_build.PROFILING_FLAGS)}, in "
           f"{time.perf_counter() - t:.1f} s ({' '.join(_build.NVCC_FLAGS)})")
     for name, log in _build.build_logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+        for fn, line in ptxas_lines(log):
+            print(f"  {name}: {fn}: {line}")
     # no cut may have lost the work it names: the count of tensor-core and
     # FMA instructions grows with each stage a cut keeps
     counts = sass_counts(_build)
@@ -306,15 +333,20 @@ def main() -> int:
               + ", ".join(f"{st} {c}" for st, c in zip(stages, seq)))
         check(all(a < b for a, b in zip(seq[:-2], seq[1:-1])) and seq[-1] >= seq[-2],
               f"{kernel}: a cut's SASS count does not grow with its stages: {seq}")
-    # the production K1 runs its GEMMs on the tensor cores (wgmma) and no
-    # product on the FMA units; the production K2 and K4 are wgmma kernels
-    # with no mma.sync left
-    prod = sass_counts(_build, ("fused_srcnn", "fused_srcnn_bf16", "fused_srcnn_int8"))
-    for kernel in ("K1", "K2", "K4"):
+    # the production K1, K2, K3, K3n and K4, and K5 in the profiling build,
+    # are wgmma kernels with no mma.sync left; K1 runs no product on the FMA
+    # units; K3h is still an mma.sync kernel
+    prod = sass_counts(_build, MAIN_LIBS)
+    prod[("K5", "full")] = counts.get(("K5", "full"))
+    for kernel in ("K1", "K2", "K3", "K3n", "K4", "K5", "K3h"):
         c = prod.get((kernel, "full"))
         print(f"SASS of the production {kernel}: {c}")
-        check(c is not None and c["HGMMA"] + c["IGMMA"] > 0 and c["HMMA"] == c["IMMA"] == 0,
-              f"the production {kernel} is not a wgmma kernel: {c}")
+        check(c is not None, f"the production {kernel} is missing from the SASS")
+        if kernel == "K3h":
+            check(c["HMMA"] > 0, f"K3h holds no HMMA: {c}")
+        else:
+            check(c["HGMMA"] + c["IGMMA"] > 0 and c["HMMA"] == c["IMMA"] == 0,
+                  f"the production {kernel} is not a wgmma kernel: {c}")
     check(prod[("K1", "full")]["FFMA"] == 0, "the production K1 holds FFMA")
 
     # --- 3. kernels vs plain versions on the card --------------------------
@@ -669,30 +701,9 @@ def main() -> int:
     packed = fused_conv.pack_params(params).to(dev)
     packed_int8 = fused_conv.pack_int8_params(qparams)
     y_out = torch.empty(2048, 2048, device=dev)
-    kern_ms, plain_ms = {}, {}
-    for name, (mode, _, _) in KERNELS.items():
-        if name == "K4":
-            fns = {"plain": lambda: fused_conv.forward_y_int8_reference(qparams, y, 2048, 2048),
-                   "kernel": lambda: fused_conv.launch("K4", packed_int8, y, y_out),
-                   "wrapper": lambda: fused_conv.forward_y_int8(qparams, y, 2048, 2048)}
-        else:
-            pmode = {k: v for k, v in mode.items() if k != "geom"}
-            fns = {"plain": lambda: fused_conv.forward_y_reference(params, y, 2048, 2048, **pmode),
-                   "kernel": lambda: fused_conv.launch(name, packed, y, y_out),
-                   "wrapper": lambda: fused_conv.forward_y(params, y, 2048, 2048, **mode)}
-        t = timed(fns)
-        kern_ms[name], plain_ms[name] = t["kernel"], t["plain"]
-        bms, by = bound(name, 1, 2048, 2048)
-        extra = (f"; f32 FMA bound {bound(name, 1, 2048, 2048, fma=True)[0]:.3f} ms"
-                 if name == "K1" else
-                 f"; {BEFORE_WGMMA_MS[name]:.3f} ms before its redesign on wgmma"
-                 if name in BEFORE_WGMMA_MS else "")
-        print(f"timing on {card}, median of 10: 2048^2 conv stack {name} "
-              f"{t['kernel']:.3f} ms (through its wrapper {t['wrapper']:.3f} "
-              f"ms), its plain version {t['plain']:.3f} ms; bound {bms:.3f} ms "
-              f"({by}){extra}")
-    # the nearest library computation to K3: cuDNN's bf16 convs (valid on the
-    # halo plane, no ring clamp; their outputs are bf16); the port never calls it
+    # the nearest library computations: cuDNN's bf16 convs for K3, K3n and
+    # K5, its f32 ones for K1, K2, K3h (valid on the halo plane, no ring
+    # clamp; the bf16 ones' outputs are bf16); the port never calls them
     pb = {k: v.to(torch.bfloat16) for k, v in params.items()}
     yb = y[None, None].to(torch.bfloat16)
 
@@ -712,8 +723,33 @@ def main() -> int:
     lib = timed({"bf16": cudnn_bf16, "f32": cudnn_f32})
     print(f"timing on {card}, median of 10: 2048^2 cuDNN conv stacks (valid "
           f"convs on the halo plane, no ring clamp): bf16 {lib['bf16']:.3f} ms "
-          f"(library yardstick for K3, K3n), f32 with TF32 off "
+          f"(library yardstick for K3, K3n, K5), f32 with TF32 off "
           f"{lib['f32']:.3f} ms (for K1, K2, K3h)")
+    kern_ms, plain_ms = {}, {}
+    for name, (mode, _, _) in KERNELS.items():
+        if name == "K4":
+            fns = {"plain": lambda: fused_conv.forward_y_int8_reference(qparams, y, 2048, 2048),
+                   "kernel": lambda: fused_conv.launch("K4", packed_int8, y, y_out),
+                   "wrapper": lambda: fused_conv.forward_y_int8(qparams, y, 2048, 2048)}
+        else:
+            pmode = {k: v for k, v in mode.items() if k != "geom"}
+            fns = {"plain": lambda: fused_conv.forward_y_reference(params, y, 2048, 2048, **pmode),
+                   "kernel": lambda: fused_conv.launch(name, packed, y, y_out),
+                   "wrapper": lambda: fused_conv.forward_y(params, y, 2048, 2048, **mode)}
+        t = timed(fns)
+        kern_ms[name], plain_ms[name] = t["kernel"], t["plain"]
+        bms, by = bound(name, 1, 2048, 2048)
+        extra = (f"; f32 FMA bound {bound(name, 1, 2048, 2048, fma=True)[0]:.3f} ms"
+                 if name == "K1" else
+                 f"; {BEFORE_WGMMA_MS[name]:.3f} ms before its redesign on wgmma"
+                 if name in BEFORE_WGMMA_MS else "")
+        if name != "K4":
+            extra += (f"; cuDNN {'bf16' if name in ('K3', 'K3n') else 'f32'} stack "
+                      f"{lib['bf16' if name in ('K3', 'K3n') else 'f32']:.3f} ms")
+        print(f"timing on {card}, median of 10: 2048^2 conv stack {name} "
+              f"{t['kernel']:.3f} ms (through its wrapper {t['wrapper']:.3f} "
+              f"ms), its plain version {t['plain']:.3f} ms; bound {bms:.3f} ms "
+              f"({by}){extra}")
     # the nearest library computation to K4: cuBLAS int8 GEMMs on the three
     # layers' im2col'd operands (conv1 over the 2052^2 c2 ring region, K
     # padded to 96; conv2; conv3 as a K=800 GEMM, N padded to 8).  It leaves
@@ -751,18 +787,23 @@ def main() -> int:
                   "K3": lib["bf16"], "K3n": lib["bf16"], "K4": lib_int8,
                   "K5": lib["bf16"], "K6": None, "K7": None}
 
-    # K5 beside K3 (the same work in row bands), in turns on one card
+    # K5 beside K3 (the same work in row bands), in turns on one card, at the
+    # recommended band height, the JAX package's default 64, and 12 (the
+    # height of the mma.sync figure it is compared with)
     th = fused_conv.BAND_TILE_H
-    band_t = timed({"K3": lambda: fused_conv.launch("K3", packed, y, y_out),
-                    "K5 64": lambda: fused_conv.launch("K5", packed, y, y_out, tile_h=64),
-                    f"K5 {th}": lambda: fused_conv.launch("K5", packed, y, y_out, tile_h=th),
-                    "plain": lambda: fused_conv.forward_y_band_reference(
-                        params, y, 2048, 2048, tile_h=th)})
+    heights = sorted({12, th, 64})
+    band_t = timed({"K3": lambda: fused_conv.launch("K3", packed, y, y_out)}
+                   | {f"K5 {b}": (lambda b=b: fused_conv.launch("K5", packed, y, y_out,
+                                                                 tile_h=b))
+                      for b in heights}
+                   | {"plain": lambda: fused_conv.forward_y_band_reference(
+                       params, y, 2048, 2048, tile_h=th)})
     kern_ms["K5"], plain_ms["K5"] = band_t[f"K5 {th}"], band_t["plain"]
-    print(f"timing on {card}, median of 10: 2048^2 K5 (row bands) at tile_h 64 "
-          f"{band_t['K5 64']:.3f} ms, at tile_h {th} {band_t[f'K5 {th}']:.3f} ms; K3 "
-          f"{band_t['K3']:.3f} ms; its plain version (K3's) {band_t['plain']:.3f} ms; "
-          f"cuDNN bf16 stack {lib['bf16']:.3f} ms")
+    print(f"timing on {card}, median of 10: 2048^2 K5 (row bands) at tile_h "
+          + ", ".join(f"{b} {band_t[f'K5 {b}']:.3f}" for b in heights)
+          + f" ms (recommended BAND_TILE_H {th}; mma.sync design at 12: "
+          f"{BEFORE_WGMMA_MS['K5']:.3f}); K3 {band_t['K3']:.3f} ms; its plain version "
+          f"(K3's) {band_t['plain']:.3f} ms; cuDNN bf16 stack {lib['bf16']:.3f} ms")
     # the plain versions of the cuts that stand for K6 and K7
     for rec, (kernel, stage) in RECORD_CUT.items():
         p = qparams if kernel == "K4" else params

@@ -52,7 +52,8 @@ __device__ __forceinline__ T quad_sum(T v) {
 // ring, [ROWS][stride c2_stride], ring position (a, b) = global c2
 // (r0 - 2 + a, q0 - 2 + b): the 32 c2 channels, or any per-position
 // function of them, such as conv3's 25 tap products, of any element type
-// (f32 in K1-K3, int32 in K4).  Where an edge's flag
+// (f32 in K1 and K2, int32 in K4; K3, K3n and K5 clamp only the strips
+// that conv3 reads, fused_srcnn_bf16.cu).  Where an edge's flag
 // is set, a ring position outside [0,h) x [0,w) takes the values of the
 // clamped position, which lies in the ring and is never itself rewritten;
 // where it is 0 the ring keeps the values of the real halo.  Only blocks on

@@ -23,8 +23,13 @@ K4 ports ``_kernel_int8`` (reached through ``_fused_int8`` /
 :func:`forward_y_int8_reference`.  The JAX package's int8 tile height
 (``INT8_TH = 80``) follows Mosaic's VMEM limits and is not carried over.
 
+K1, K2, K3, K3n and K4 are ``wgmma`` kernels with a persistent grid;
+K2, K3 and K3n are instances of one bf16 kernel (two passes per GEMM for
+K2, one for K3 and K3n, whose narrower tile changes nothing a pixel
+computes).  K3h is the last ``mma.sync`` kernel.
+
 K5 ports ``_kernel_band`` (reached through ``_fused_band`` /
-``forward_y_band``): K3's arithmetic with one block per band of rows,
+``forward_y_band``): K3's per-tile body with one block per band of rows,
 :func:`forward_y_band`, bit-identical to K3; its plain version is K3's.
 K5 and the stage cuts of :mod:`.ablation` (K6, K7) are the
 kernel-profiling path: they live in second builds of the same sources
@@ -96,9 +101,12 @@ _KERNELS = {"K1": ("fused_srcnn", "forward", ()),
 #: with a rolling window (``csrc/fused_srcnn_bf16.cu``).
 BAND_IMPLS = ("unroll", "fori")
 #: the band height this port recommends for K5 (not a default: the JAX
-#: package's 64 is): one 12-row tile per band gives a 2048-row plane 171
-#: blocks, more than the H100's 132 SMs; 64 rows give 32 (PERF.md)
-BAND_TILE_H = 12
+#: package's 64 is): the fastest of 8, 12, 16, 24, 32 and 64 rows at
+#: 2048^2 on an H100 (tools/trace_kernel.py --mode bf16x1band --th N,
+#: PERF.md).  16 rows give a
+#: 2048-row plane 128 blocks, one wave on the 132 SMs, each a K3 tile cut
+#: to 16 rows; 12 rows give 171 blocks, two waves; 64 rows give 32
+BAND_TILE_H = 16
 
 
 def pack_params(params: dict) -> torch.Tensor:

@@ -435,15 +435,19 @@ def test_full_cut_equals_production_kernel(cuda, kernel):
         assert torch.equal(got, ref)
 
 
-# --- K2 and K4 on wgmma: the persistent grid ---------------------------------
+# --- K2, K3, K3n and K4 on wgmma: the persistent grid ----------------------
+
+WGMMA_KERNELS = ["K2", "K3", "K3n", "K4"]
 
 
 def _k2_or_k4(kernel, p, y, h, w, flags=None):
+    """The kernel's output and its plain version's (K2, K3, K3n, K4)."""
     if kernel == "K4":
         return (fused_conv.forward_y_int8(p, y, h, w, flags),
                 fused_conv.forward_y_int8_reference(p, y, h, w, flags))
-    return (fused_conv.forward_y(p, y, h, w, flags, precision="split"),
-            fused_conv.forward_y_reference(p, y, h, w, flags, precision="split"))
+    kw = BF16_MODES[kernel]
+    return (fused_conv.forward_y(p, y, h, w, flags, **kw),
+            fused_conv.forward_y_reference(p, y, h, w, flags, **_plain(kw)))
 
 
 def _params_of(kernel, device):
@@ -456,14 +460,16 @@ def _assert_k2_k4(kernel, got, ref):
     if kernel == "K4":
         assert torch.equal(got, ref)
     else:
-        assert float((got - ref).abs().max()) <= SPLIT_ATOL
+        _assert_close(kernel, got, ref)
 
 
-@pytest.mark.parametrize("kernel", ["K2", "K4"])
+@pytest.mark.parametrize("kernel", WGMMA_KERNELS)
 def test_k2_k4_persistent_grid_walks_many_tiles(cuda, kernel):
     """One block per SM walks the tiles with a static stride: a 500x1000
-    plane (32 x 17 = 544 tiles of 16 x 60, more than two per SM) equals its
-    plain version, ragged edges included."""
+    plane (K2: 21 x 17 = 357 tiles of 24 x 60; K3: 22 x 17 = 374 of 23 x 60;
+    K3n: 756 of 24 x 28; K4: 340 of 26 x 60; each more than two per SM)
+    equals its plain version,
+    ragged edges included."""
     p = _params_of(kernel, cuda)
     y = _plane(512, 1012, 70, cuda)
     before = fused_conv.launches_by[kernel]
@@ -473,7 +479,7 @@ def test_k2_k4_persistent_grid_walks_many_tiles(cuda, kernel):
     _assert_k2_k4(kernel, got, ref)
 
 
-@pytest.mark.parametrize("kernel", ["K2", "K4"])
+@pytest.mark.parametrize("kernel", WGMMA_KERNELS)
 def test_k2_k4_batch_with_zero_flags(cuda, kernel):
     """A batch of 3 planes with every edge flag 0 (the ring keeps the real
     halo) equals its plain version and each plane launched alone."""
@@ -485,7 +491,22 @@ def test_k2_k4_batch_with_zero_flags(cuda, kernel):
         assert torch.equal(got[i], _k2_or_k4(kernel, p, ys[i], 257, 301, (0, 0, 0, 0))[0])
 
 
-@pytest.mark.parametrize("kernel", ["K2", "K4"])
+@pytest.mark.parametrize("tile_h", [1, 5, 12, 13, 64])
+def test_k3n_and_k5_equal_k3_over_many_tiles(cuda, tile_h):
+    """K3n (24 x 28 tiles) and K5 (row bands of ``tile_h``, the last tile
+    of a band cut) run K3's per-tile body: on the many-tile plane and on
+    the zero-flag batch above, both equal K3 bit for bit."""
+    p = srcnn.load_params(cuda)
+    for y, h, w, flags in ((_plane(512, 1012, 70, cuda), 500, 1000, (1, 0, 0, 1)),
+                           (torch.stack([_plane(269, 313, 71 + i, cuda) for i in range(3)]),
+                            257, 301, (0, 0, 0, 0))):
+        k3 = fused_conv.forward_y(p, y, h, w, flags, precision="bf16x1")
+        assert torch.equal(fused_conv.forward_y(p, y, h, w, flags, precision="bf16x1",
+                                                geom="narrow"), k3)
+        assert torch.equal(fused_conv.forward_y_band(p, y, h, w, flags, tile_h=tile_h), k3)
+
+
+@pytest.mark.parametrize("kernel", ["K2", "K3", "K4"])
 @pytest.mark.parametrize("stage", ["load", "conv1", "conv2", "taps", "full"])
 def test_k2_k4_launch_cut_matches_plain_version(cuda, kernel, stage):
     """``ablation.launch_cut`` on weights packed once, over many tiles,
