@@ -14,11 +14,11 @@ Drives the port's paths on the card through its hand-written CUDA kernels
    check that its count of HMMA / IMMA / HGMMA / IGMMA / FFMA instructions
    grows with each stage the cut keeps, so that no cut has been optimised
    away (the full kernel adds only adds, so its count equals or passes the
-   last cut's).  K1, K2, K3, K3n and K4 are ``wgmma`` kernels, and so is
-   K5: check that the production K1, K2, K3, K3n and K4, and K5 in the
-   profiling build, hold HGMMA / IGMMA (``wgmma`` on tf32 or bf16 / s8) and
-   no HMMA / IMMA (``mma.sync``), and that K1 holds no FFMA; K3h is the
-   last ``mma.sync`` kernel: check that it still holds HMMA;
+   last cut's).  Every kernel is a ``wgmma`` kernel: check that the
+   production K1, K2, K3, K3h, K3n and K4, and K5 in the profiling build,
+   hold HGMMA / IGMMA (``wgmma`` on tf32 or bf16 / s8) and no HMMA / IMMA
+   (``mma.sync``), that K1 holds no FFMA, and that no production kernel
+   spills;
 3. hold every kernel against its plain PyTorch version on the card at the
    listed plane shapes and edge flags, and a batch of 3 planes in one
    launch: K1 (exact) max abs error <= 2e-3; K2 (split) and K3h (split,
@@ -62,8 +62,8 @@ Drives the port's paths on the card through its hand-written CUDA kernels
 8. time at 2048x2048 each kernel (its launch on weights packed once, and
    through its wrapper) beside its plain version, its bound (K1: 3xTF32 on
    the tensor cores, and the f32 FMA bound beside it), the figures of K2,
-   K4, K3, K3n and K5 before their redesign on ``wgmma`` and a library
-   yardstick
+   K3, K3h, K3n, K4 and K5 before their redesign on ``wgmma`` and a
+   library yardstick
    (K1, K2, K3h: the cuDNN f32 conv stack; K3, K3n: the cuDNN bf16 conv
    stack; K4: ``torch._int_mm`` on the three im2col'd layers), the frame
    pass and ``upscale_frames`` per frame at each tier (medians of
@@ -128,7 +128,8 @@ PROFILING_KERNELS = {
 }
 # 2048^2 launch times on the mma.sync designs, before each kernel's
 # redesign on wgmma (PERF.md; K5 at tile_h 12; an H100 SXM at 700 W)
-BEFORE_WGMMA_MS = {"K2": 0.984, "K4": 0.755, "K3": 0.606, "K3n": 0.696, "K5": 0.963}
+BEFORE_WGMMA_MS = {"K2": 0.984, "K4": 0.755, "K3": 0.606, "K3n": 0.696, "K5": 0.963,
+                   "K3h": 0.899}
 # the cut that stands for K6 / K7 in the kernels record, the same in every
 # run so that the record compares across versions: K1's conv2 and K4's taps
 # (every cut's time is printed in phase 9)
@@ -224,31 +225,28 @@ def bound(kernel: str, n: int, h: int, w: int,
 SASS_OPS = ("HMMA", "IMMA", "HGMMA", "IGMMA", "FFMA")
 PROFILING_LIBS = ("fused_srcnn_prof", "fused_srcnn_bf16_prof", "fused_srcnn_int8_prof")
 MAIN_LIBS = ("fused_srcnn", "fused_srcnn_bf16", "fused_srcnn_int8")
-# the bf16 wgmma kernel's (MODE, TW) -> kernel; MODE 0 SPLIT, 1 BF16X1
-WGMMA_BF16 = {(0, 60): "K2", (1, 60): "K3", (1, 28): "K3n"}
+# the bf16 wgmma kernel's (MODE, TW) -> kernel; MODE 0 SPLIT, 1 BF16X1, 2 HILO
+WGMMA_BF16 = {(0, 60): "K2", (1, 60): "K3", (1, 28): "K3n", (2, 60): "K3h"}
 
 
 def kernel_of(symbol: str):
     """(kernel, stage) of a kernel instance from its mangled name, or None.
     Instances are told apart by their mangled template arguments:
     ``fused_srcnn_kernel<STAGE>`` (K1),
-    ``fused_srcnn_wgmma_bf16_kernel<MODE, TW, STAGE>`` (K2, K3, K3n:
-    :data:`WGMMA_BF16`), ``fused_srcnn_bf16_kernel<MODE, TW>`` (MODE 2 at
-    TW 60: K3h, mma.sync), ``fused_srcnn_int8_kernel<STAGE>`` (K4); K5 is
+    ``fused_srcnn_wgmma_bf16_kernel<MODE, TW, STAGE>`` (K2, K3, K3h, K3n:
+    :data:`WGMMA_BF16`), ``fused_srcnn_int8_kernel<STAGE>`` (K4); K5 is
     ``fused_srcnn_band_kernel``."""
     from libsrcnn_tpu_torch.kernels import ablation
 
     stage_of = {code: name for name, code in ablation.STAGE_CODES.items()}
     if "fused_srcnn_band_kernel" in symbol:
         return ("K5", "full")
-    m = re.search(r"(fused_srcnn(?:_wgmma_bf16|_bf16|_int8)?)_kernelI((?:Li\d+E)+)E", symbol)
+    m = re.search(r"(fused_srcnn(?:_wgmma_bf16|_int8)?)_kernelI((?:Li\d+E)+)E", symbol)
     if not m:
         return None
     args = tuple(int(a) for a in re.findall(r"Li(\d+)E", m.group(2)))
     if m.group(1) == "fused_srcnn_wgmma_bf16":
         kernel, stage = WGMMA_BF16.get(args[:2]), args[2]
-    elif m.group(1) == "fused_srcnn_bf16":
-        kernel, stage = ("K3h" if args == (2, 60) else None), ablation.STAGE_CODES["full"]
     else:
         kernel = {"fused_srcnn": "K1", "fused_srcnn_int8": "K4"}[m.group(1)]
         stage = args[0]
@@ -322,6 +320,10 @@ def main() -> int:
     for name, log in _build.build_logs.items():
         for fn, line in ptxas_lines(log):
             print(f"  {name}: {fn}: {line}")
+            # no production kernel spills (the main libraries hold only those)
+            spill = re.findall(r"(\d+) bytes spill", line)
+            check(name not in MAIN_LIBS or not any(int(b) for b in spill),
+                  f"{name}: {fn} spills: {line}")
     # no cut may have lost the work it names: the count of tensor-core and
     # FMA instructions grows with each stage a cut keeps
     counts = sass_counts(_build)
@@ -333,20 +335,17 @@ def main() -> int:
               + ", ".join(f"{st} {c}" for st, c in zip(stages, seq)))
         check(all(a < b for a, b in zip(seq[:-2], seq[1:-1])) and seq[-1] >= seq[-2],
               f"{kernel}: a cut's SASS count does not grow with its stages: {seq}")
-    # the production K1, K2, K3, K3n and K4, and K5 in the profiling build,
-    # are wgmma kernels with no mma.sync left; K1 runs no product on the FMA
-    # units; K3h is still an mma.sync kernel
+    # the production K1, K2, K3, K3h, K3n and K4, and K5 in the profiling
+    # build, are wgmma kernels with no mma.sync left; K1 runs no product on
+    # the FMA units
     prod = sass_counts(_build, MAIN_LIBS)
     prod[("K5", "full")] = counts.get(("K5", "full"))
-    for kernel in ("K1", "K2", "K3", "K3n", "K4", "K5", "K3h"):
+    for kernel in ("K1", "K2", "K3", "K3h", "K3n", "K4", "K5"):
         c = prod.get((kernel, "full"))
         print(f"SASS of the production {kernel}: {c}")
         check(c is not None, f"the production {kernel} is missing from the SASS")
-        if kernel == "K3h":
-            check(c["HMMA"] > 0, f"K3h holds no HMMA: {c}")
-        else:
-            check(c["HGMMA"] + c["IGMMA"] > 0 and c["HMMA"] == c["IMMA"] == 0,
-                  f"the production {kernel} is not a wgmma kernel: {c}")
+        check(c["HGMMA"] + c["IGMMA"] > 0 and c["HMMA"] == c["IMMA"] == 0,
+              f"the production {kernel} is not a wgmma kernel: {c}")
     check(prod[("K1", "full")]["FFMA"] == 0, "the production K1 holds FFMA")
 
     # --- 3. kernels vs plain versions on the card --------------------------

@@ -12,12 +12,12 @@
 //                :60-73); its output is bit-identical to K3's;
 //   K3h hilo     pack="hilo": K2's math, with conv1 contracting hi and lo
 //                of each tap interleaved along K (depth 162) against
-//                row-duplicated bf16(w1) (:243-269).
-// K2, K3 and K3n are instances of one wgmma kernel,
+//                row-duplicated bf16(w1) (:243-269, w1 at :730-733).
+// All four are instances of one wgmma kernel,
 // fused_srcnn_wgmma_bf16_kernel<MODE, TW, STAGE> (MODE SPLIT: two bf16
-// passes per GEMM; BF16X1: one); K5 (below) runs the same per-tile body in
-// row bands.  K3h, fused_srcnn_bf16_kernel<HILO, 60>, is the last mma.sync
-// kernel.
+// passes per GEMM; BF16X1: one; HILO: conv1 in one pass over the
+// interleaved hi / lo rows, conv2 and the tap GEMM in two, as SPLIT); K5
+// (below) runs the same per-tile body in row bands.
 // Per output pixel of an [h, w] plane: conv1 9x9 1->64 + b1, ReLU; conv2
 // 1x1 64->32 + b2, ReLU; the reference's c2 border clamp gated by the edge
 // flags; conv3 5x5 32->1 + b3, clamp to [0, 255].  Weights are rounded to
@@ -38,11 +38,14 @@
 //   output tiles of all n planes with a static stride; 64-bit tile walk and
 //   offsets.  The next tile's window is copied with cp.async while this
 //   tile computes, then rounded once to a bf16 plane (SPLIT: split into
-//   bf16 hi and lo planes).
+//   bf16 hi and lo planes; HILO: one plane of 32-bit words hi | lo << 16,
+//   the TPU kernel's bit layout).
 // * The B operands go to shared memory once per block, rounded to bf16, as
-//   wgmma's K-major operands without swizzle: w1 [96 x 64], w2 [64 x 32],
-//   w3 as the tap GEMM [32 x 32] (column n = tap 5 dy + dx, 25..31 zero);
-//   18,432 bytes.  The weights are not split; in SPLIT the activations are.
+//   wgmma's K-major operands without swizzle: w1 [96 x 64] (HILO: [176 x
+//   64], each tap's row twice, rows 162..175 zero), w2 [64 x 32], w3 as the
+//   tap GEMM [32 x 32] (column n = tap 5 dy + dx, 25..31 zero); 18,432
+//   bytes (HILO 28,672).  The weights are not split; in SPLIT and HILO the
+//   activations are.
 // * M is ring positions: an m64 tile is one ring row of 64 columns (TW 60:
 //   K2, K3) or two of 32 (TW 28: K3n), and warpgroup v of NWG takes m64
 //   tiles v, v + NWG, ...  The rows g and g + 8 of a lane's fragment are
@@ -57,10 +60,13 @@
 //   pair at dx 8 with a zero row, 45 pairs padded to 48: K 96, the same six
 //   k16 steps as 81 taps padded), so each A register, two adjacent k, is
 //   one aligned 32-bit shared load: a ring column of odd parity reads a
-//   copy of the plane that starts one element later.  SPLIT loads the lo
-//   fragments first and the hi fragments while the tensor cores run the lo
-//   pass; BF16X1 loads the next m64 tile's fragments while they run this
-//   one's.
+//   copy of the plane that starts one element later.  HILO's K order is
+//   the TPU kernel's: GEMM rows 2t and 2t + 1 are hi and lo of tap t (81
+//   taps padded to 88: K 176, 11 k16 steps), so an A register is one word
+//   of the hilo plane at any ring column, and no copy is needed.  SPLIT
+//   loads the lo fragments first and the hi fragments while the tensor
+//   cores run the lo pass; BF16X1 and HILO load the next m64 tile's
+//   fragments while they run this one's.
 // * conv2 and the tap GEMM take A straight from the previous accumulators:
 //   the f32 m64 accumulator of a warp holds columns 2q, 2q + 1 of each
 //   8-wide n-group, which is the bf16 A layout of k16 step j / 2 (a0 / a1
@@ -69,9 +75,10 @@
 //   only conv3's 25 tap planes do.
 // * The border clamp is K1's coordinate clamp, applied to the tap planes:
 //   G at a ring position is a function of that position's c2 alone, so
-//   copying G from the clamped position equals clamping c2.  BF16X1 clamps
-//   only the strips that conv3 reads (clamp_strips); SPLIT walks the whole
-//   ring (srcnn_common.cuh).  conv3's output is a shift-add of the tap
+//   copying G from the clamped position equals clamping c2.  Every mode
+//   clamps only the strips that conv3 reads (clamp_strips), which it
+//   copies as srcnn_common.cuh's whole-ring ring_clamp would, so the
+//   output does not change.  conv3's output is a shift-add of the tap
 //   planes, out(y, x) = b3 + sum over (dy, dx) of G[5 dy + dx](y + dy,
 //   x + dx), in that fixed order.
 // * Every pixel's sums run in one fixed order, whatever tile it sits in,
@@ -82,19 +89,13 @@
 //   27 x 64 c2 ring (1.25x recomputation), 35 x 72 window; tap planes
 //   173,200 B, B operands 18,432 B, biases 512 B, the f32 window 10,080 B
 //   and two bf16 planes of 5,040 B: 213,184 B.  K2: 24 x 60, two
-//   warpgroups, 28 x 64 ring (1.24x), four bf16 planes: 230,272 B.  K3n:
-//   24 x 28, two warpgroups, 28 x 32 ring (1.33x), 36 x 40 window: 120,576
-//   B.  One block per SM each.  Of K3's 24 x 60 with two warpgroups, 16 x 60
-//   with two, and 20 x 60 and 23 x 60 with three, 23 x 60 was the fastest
-//   (PERF.md).
+//   warpgroups, 28 x 64 ring (1.24x), four bf16 planes: 230,272 B.  K3h:
+//   K2's shape, its w1 22,528 B and one hilo plane of 10,368 B in place
+//   of the four: 230,144 B.  K3n: 24 x 28, two warpgroups, 28 x 32 ring
+//   (1.33x), 36 x 40 window: 120,576 B.  One block per SM each.  Of K3's
+//   24 x 60 with two warpgroups, 16 x 60 with two, and 20 x 60 and 23 x 60
+//   with three, 23 x 60 was the fastest (PERF.md).
 // * Every parameter comes in through `params`; nothing outlives a launch.
-//
-// K3h, on mma.sync m16n8k16: one block (256 threads, 8 warps) per 12 x 60
-// output tile on a 16 x 64 c2 ring, its window staged as bf16 hi | lo << 16
-// words; conv1 (K 162), conv2 and the tap GEMM with M = ring positions, a
-// warp taking two 16-position m-tiles at a time, the m16n8 accumulators
-// turned into the next GEMM's m16k16 A fragments in registers; the same
-// ring clamp and shift-add.
 //
 // Built with -DSRCNN_PROFILING (a second library, the kernel-profiling
 // path of kernels/ablation.py and fused_conv.forward_y_band), the file
@@ -109,6 +110,7 @@
 //   lane rotate, and conv1's im2col is done in registers.  The production
 //   kernels are the FULL instances.
 
+#include <climits>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -120,8 +122,8 @@ namespace {
 
 using namespace srcnn;
 
-// SPLIT and BF16X1: the wgmma kernel's modes; HILO: the mma.sync kernel's.
-// chip_smoke.py reads the values from the instances' names in the SASS.
+// The wgmma kernel's modes.  chip_smoke.py reads the values from the
+// instances' names in the SASS.
 enum Mode { SPLIT = 0, BF16X1 = 1, HILO = 2 };
 
 __device__ __forceinline__ uint32_t bf16_bits(float x) {
@@ -137,24 +139,29 @@ __device__ __forceinline__ uint32_t pack_bf16(float x0, float x1) {
   return bf16_bits(x0) | (bf16_bits(x1) << 16);
 }
 
-// ---- the wgmma kernel: K2, K3, K3n (see the file's notes) -----------------
+// ---- the wgmma kernel: K2, K3, K3h, K3n (see the file's notes) ------------
 
 namespace wg {
 
 constexpr int NPAIR = 45;                 // conv1's taps as pairs: 9 rows x 5
-constexpr int K1P = 96;                   // conv1's K: the 45 pairs padded to 48
-constexpr int KS1 = K1P / 16, KS2 = C1 / 16, KS3 = C2 / 16;  // k16 steps: 6, 4, 2
+constexpr int KS2 = C1 / 16, KS3 = C2 / 16;  // conv2's, the tap GEMM's k16 steps
 constexpr int NG = 32;                    // the tap GEMM's N, 25 taps padded
 
 // An instance's geometry and shared memory (bytes).  A B operand of K rows
 // and N columns takes (K / 8) * (N / 8) core matrices of 128 bytes.
 template <int MODE, int TW>
 struct Geo {
+  static constexpr int mode = MODE;
   static constexpr bool K3 = MODE == BF16X1 && TW == 60;
   static constexpr int TH = K3 ? 23 : 24;           // output tile rows (K5: K3's)
   static constexpr int NWG = K3 ? 3 : 2;            // warpgroups per block
   static constexpr int NT = 128 * NWG;              // threads per block
-  static constexpr int NP = MODE == SPLIT ? 2 : 1;  // bf16 passes per GEMM
+  // bf16 passes per GEMM (HILO's conv1 takes one, over hi and lo rows)
+  static constexpr int NP = MODE == BF16X1 ? 1 : 2;
+  // conv1's K: the 45 tap pairs padded to 48, or HILO's 81 (hi, lo) row
+  // pairs padded to 88; and its k16 steps (6 or 11)
+  static constexpr int K1P = MODE == HILO ? 176 : 96;
+  static constexpr int KS1 = K1P / 16;
   static constexpr int RH = TH + 4, RW = TW + 4;    // c2 ring tile
   static constexpr int WH = RH + 8, WW = RW + 8;    // input window
   static constexpr int RPM = 64 / RW;               // ring rows per m64 tile
@@ -167,14 +174,16 @@ struct Geo {
   static constexpr int B_BIAS = 512;                // b1 [64], b2 [32], b3
   static constexpr int B_RAW = WH * WW * 4;
   static constexpr int B_PLANE = WH * WW * 2;       // one bf16 window plane
+  // the rounded window: planes hi, hi from +1 (SPLIT: then lo, lo from +1);
+  // HILO's one plane of 32-bit words takes two planes' bytes
+  static constexpr int B_WIN = (MODE == SPLIT ? 4 : 2) * B_PLANE;
   static constexpr int SM_W1 = (B_G + 1023) / 1024 * 1024;
   static constexpr int SM_W2 = SM_W1 + B_W1;
   static constexpr int SM_W3 = SM_W2 + B_W2;
   static constexpr int SM_BIAS = SM_W3 + B_W3;
   static constexpr int SM_RAW = SM_BIAS + B_BIAS;
-  // planes hi, hi from +1 (SPLIT: then lo, lo from +1)
   static constexpr int SM_WIN = SM_RAW + B_RAW;
-  static constexpr size_t SMEM = SM_WIN + 2 * NP * B_PLANE;
+  static constexpr size_t SMEM = SM_WIN + B_WIN;
   static_assert((RW == 64 || RW == 32) && RH % RPM == 0 && WW % 2 == 0,
                 "m64 tiles of whole ring rows");
   // more than half of the 232,448 B an SM holds: one block per SM
@@ -209,7 +218,9 @@ __device__ __forceinline__ int b_word2(int k, int n) {
 
 // The three GEMMs' B operands, rounded to bf16, and the biases.  conv1's
 // GEMM row k is tap (dy, dx) = (p / 5, 2 (p % 5) + k % 2) of pair p = k / 2
-// (zero past dx 8 and past pair 44).
+// (zero past dx 8 and past pair 44); in HILO, tap k / 2 (rows 2t and
+// 2t + 1 meet tap t's hi and lo; zero past tap 80).  Every row is written,
+// the zero ones too.
 template <class G>
 __device__ void stage_params(const float* __restrict__ params,
                              unsigned char* smem, int t) {
@@ -218,15 +229,17 @@ __device__ void stage_params(const float* __restrict__ params,
   uint32_t* w3 = reinterpret_cast<uint32_t*>(smem + G::SM_W3);
   float* bias = reinterpret_cast<float*>(smem + G::SM_BIAS);
   constexpr int NT = G::NT;
-  for (int i = t; i < K1P / 2 * C1; i += NT) {
-    const int p = i / C1, n = i % C1;
+  for (int i = t; i < G::K1P / 2 * C1; i += NT) {
+    const int p = i / C1, n = i % C1;     // GEMM rows 2p, 2p + 1; column n
     float v0 = 0.f, v1 = 0.f;
-    if (p < NPAIR) {
+    if constexpr (G::mode == HILO) {
+      if (p < 81) v0 = v1 = params[OFF_W1 + p * C1 + n];
+    } else if (p < NPAIR) {
       const int dx = 2 * (p % 5), tap = (p / 5) * 9 + dx;
       v0 = params[OFF_W1 + tap * C1 + n];
       if (dx + 1 < 9) v1 = params[OFF_W1 + (tap + 1) * C1 + n];
     }
-    w1[b_word2<K1P / 8>(2 * p, n)] = pack_bf16(v0, v1);
+    w1[b_word2<G::K1P / 8>(2 * p, n)] = pack_bf16(v0, v1);
   }
   for (int i = t; i < C1 / 2 * C2; i += NT) {       // row k = h1 channel k
     const int k = 2 * (i / C2), n = i % C2;
@@ -245,7 +258,9 @@ __device__ void stage_params(const float* __restrict__ params,
 
 // The window, rounded once to bf16 (SPLIT: split into hi and lo planes):
 // each plane, and again from element 1 on, so that a tap pair that starts
-// at an odd element is an aligned word there.
+// at an odd element is an aligned word there.  HILO: one plane of words
+// bf16(x) | bf16(x - bf16(x)) << 16, hi in the low half (x - hi is exact
+// in f32).
 template <class G>
 __device__ __forceinline__ void round_window(const float* raw, unsigned char* win,
                                              int t) {
@@ -257,7 +272,9 @@ __device__ __forceinline__ void round_window(const float* raw, unsigned char* wi
   for (int i = t; i < N; i += G::NT) {
     const float v = raw[i];
     const uint16_t hb = bf16_bits(v);
-    if constexpr (G::NP == 2) {
+    if constexpr (G::mode == HILO) {
+      reinterpret_cast<uint32_t*>(win)[i] = hb | (bf16_bits(v - bf16_round(v)) << 16);
+    } else if constexpr (G::NP == 2) {
       const uint16_t lb = bf16_bits(v - bf16_round(v));
       hi[i] = hb;
       lo[i] = lb;
@@ -346,7 +363,7 @@ struct BDescs {
 
 template <class G>
 __device__ __forceinline__ BDescs b_descs(const unsigned char* smem) {
-  return {b_desc(smem + G::SM_W1, (K1P / 8) * 128),
+  return {b_desc(smem + G::SM_W1, (G::K1P / 8) * 128),
           b_desc(smem + G::SM_W2, (C1 / 8) * 128),
           b_desc(smem + G::SM_W3, (C2 / 8) * 128)};
 }
@@ -363,7 +380,9 @@ __device__ __forceinline__ void ring_gemms(const unsigned char* win,
                                            int r0, int q0, int h, int w, int t,
                                            int mtiles) {
   using G = Geo<MODE, TW>;
-  constexpr int NP = G::NP, TH = G::TH, RW = G::RW, WW = G::WW, GS = G::GS;
+  constexpr int NP = G::NP, KS1 = G::KS1, TH = G::TH, RW = G::RW, WW = G::WW;
+  constexpr int GS = G::GS;
+  constexpr bool HL = MODE == HILO;
   const float* b2s = b1s + C1;
   const int wg = t / 128, warp = (t % 128) / 32, lane = t % 32;
   const int g = lane / 4, q = lane % 4;   // fragment row group, column pair
@@ -373,40 +392,51 @@ __device__ __forceinline__ void ring_gemms(const unsigned char* win,
   const int col = (G::RPM == 1 ? 16 * warp : 16 * (warp % 2)) + g;
   // Ring column col's tap pairs start at elements of its parity; an odd
   // one reads the planes that start at element 1, where they are even.
-  const int par = col & 1;
+  // HILO's plane holds one tap per word: any column is aligned.
+  const int par = HL ? 0 : col & 1;
   const uint32_t* wh = reinterpret_cast<const uint32_t*>(win + par * G::B_PLANE);
   const uint32_t* wl = reinterpret_cast<const uint32_t*>(win + (2 + par) * G::B_PLANE);
+  // words per window row, and from ring column col to col + 8
+  constexpr int WPR = HL ? WW : WW / 2, C8 = HL ? 8 : 4;
+  // the word of ring row a, column col (tap 0 of its window)
+  const auto word_at = [&](int a) { return HL ? a * WW + col : (a * WW + col - par) / 2; };
 
-  // word offsets of the tap pairs this lane feeds to conv1's A fragments:
-  // pair 8s + q (columns 2q, 2q + 1 of k16 step s) and pair 8s + q + 4
-  // (pairs past 44 read pair 0: finite, and their weights are zero)
+  // word offsets of what this lane feeds to conv1's A fragments, columns
+  // 2q, 2q + 1 and 2q + 8, 2q + 9 of k16 step s: pairs 8s + q and 8s + q +
+  // 4 (pairs past 44 read pair 0: finite, and their weights are zero); in
+  // HILO taps 8s + q and 8s + q + 4, hi and lo (taps past 80 read tap 80)
   int toff[KS1][2];
 #pragma unroll
   for (int s = 0; s < KS1; ++s)
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      int p = 8 * s + q + 4 * i;
-      p = p < NPAIR ? p : 0;
-      toff[s][i] = ((p / 5) * WW + 2 * (p % 5)) / 2;
+      if constexpr (HL) {
+        const int tap = min(8 * s + q + 4 * i, 80);
+        toff[s][i] = (tap / 9) * WW + tap % 9;
+      } else {
+        int p = 8 * s + q + 4 * i;
+        p = p < NPAIR ? p : 0;
+        toff[s][i] = ((p / 5) * WW + 2 * (p % 5)) / 2;
+      }
     }
 
   // conv1's A fragments of one plane, from word `base` (ring row a, column
   // col): rows (g, g + 8) of k16 step s are ring columns (col, col + 8),
-  // four words apart, at its two pairs
+  // C8 words apart
   const auto im2col = [&](const uint32_t* plane, int base, uint32_t (&frag)[KS1][4]) {
 #pragma unroll
     for (int s = 0; s < KS1; ++s)
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         frag[s][2 * i] = plane[base + toff[s][i]];
-        frag[s][2 * i + 1] = plane[base + toff[s][i] + 4];
+        frag[s][2 * i + 1] = plane[base + toff[s][i] + C8];
       }
   };
-  // BF16X1: the A fragments of this warpgroup's m64 tile; the next tile's
-  // are loaded while the tensor cores run this one's conv1
+  // BF16X1 and HILO: the A fragments of this warpgroup's m64 tile; the
+  // next tile's are loaded while the tensor cores run this one's conv1
   uint32_t cur[KS1][4];
-  if constexpr (NP == 1)
-    if (wg < mtiles) im2col(wh, ((G::RPM * wg + arow) * WW + col - par) / 2, cur);
+  if constexpr (MODE != SPLIT)
+    if (wg < mtiles) im2col(wh, word_at(G::RPM * wg + arow), cur);
 
 #pragma unroll 1
   for (int m = wg; m < mtiles; m += G::NWG) {
@@ -422,12 +452,13 @@ __device__ __forceinline__ void ring_gemms(const unsigned char* win,
         cut_store(out, a, col + 8, r0, q0, TH, TW, h, w, v8);
       }
     };
-    const int base = (a * WW + col - par) / 2;
+    const int base = word_at(a);
 
-    // ---- conv1: [64 x 96] x [96 x 64]; in SPLIT the hi fragments are
-    // loaded while the lo pass runs, in BF16X1 the next tile's ----
+    // ---- conv1: [64 x 96] x [96 x 64] (HILO: [64 x 176] x [176 x 64]);
+    // in SPLIT the hi fragments are loaded while the lo pass runs, in
+    // BF16X1 and HILO the next tile's ----
     float acc1[32];
-    if constexpr (NP == 2) {
+    if constexpr (MODE == SPLIT) {
       uint32_t ah[KS1][4], al[KS1][4];
       im2col(wl, base, al);
       gemm<NP>(acc1, ah, al, bd.w1,
@@ -437,7 +468,7 @@ __device__ __forceinline__ void ring_gemms(const unsigned char* win,
 #pragma unroll
       for (int i = 0; i < 32; ++i) acc1[i] = 0.f;
       bf16_pass(acc1, cur, bd.w1);
-      if (m + G::NWG < mtiles) im2col(wh, base + G::RPM * G::NWG * WW / 2, nxt);
+      if (m + G::NWG < mtiles) im2col(wh, base + G::RPM * G::NWG * WPR, nxt);
       wgmma_wait<0>();
       fence_regs(acc1);
       fence_regs(cur);
@@ -505,7 +536,7 @@ __device__ __forceinline__ void ring_gemms(const unsigned char* win,
 }
 
 // The reference's border clamp (srcnn_common.cuh's ring_clamp) on the tap
-// planes of a BF16X1 tile, over what conv3_out reads alone: ring rows
+// planes of a tile, over what conv3_out reads alone: ring rows
 // below nr = min(RH, h_end - r0 + 4) and columns below nc, and of those
 // only the positions outside the clamp box, at most two rows or columns on
 // each side.  A position there takes the values of the clamped position,
@@ -575,6 +606,7 @@ fused_srcnn_wgmma_bf16_kernel(const float* __restrict__ y,
                               int f_top, int f_bottom, int f_left, int f_right) {
   using G = Geo<MODE, TW>;
   constexpr int TH = G::TH, NT = G::NT;
+  static_assert(MODE != HILO || STAGE == FULL, "K3h has no cuts");
   extern __shared__ __align__(1024) unsigned char smem[];
   float* gs = reinterpret_cast<float*>(smem);                 // [25][GS]
   const float* b1s = reinterpret_cast<const float*>(smem + G::SM_BIAS);
@@ -621,11 +653,7 @@ fused_srcnn_wgmma_bf16_kernel(const float* __restrict__ y,
     if constexpr (STAGE == FULL) {
       // border clamp on the ring's tap planes (global c2 rows r0-2 ..
       // r0+RH-3), then conv3
-      if constexpr (G::NP == 2)
-        ring_clamp<G::RH, G::RW, NT, 25>(gs, G::GS, tl.r0, tl.q0, h, w, f_top,
-                                         f_bottom, f_left, f_right);
-      else
-        clamp_strips<G>(gs, tl.r0, tl.q0, h, h, w, f_top, f_bottom, f_left, f_right, t);
+      clamp_strips<G>(gs, tl.r0, tl.q0, h, h, w, f_top, f_bottom, f_left, f_right, t);
       conv3_out<G>(gs, b1s[C1 + C2], po, tl.r0, tl.q0, h, w, t);
       __syncthreads();                    // G and the window are rewritten next
     }
@@ -679,7 +707,7 @@ __device__ __forceinline__ void fetch_cols(float* raw, const float* __restrict__
 // column tile's 72-column window, the 12 columns it shares with the tile
 // before are moved along in shared memory and only the 60 new ones are
 // read, with cp.async while the tile before computes.  Every pixel runs
-// K3's body (ring_gemms, ring_clamp, conv3_out) in K3's order, so the
+// K3's body (ring_gemms, clamp_strips, conv3_out) in K3's order, so the
 // output equals K3's bit for bit.
 __global__ void __launch_bounds__(Geo<BF16X1, 60>::NT, 1)
 fused_srcnn_band_kernel(const float* __restrict__ y,
@@ -737,346 +765,22 @@ fused_srcnn_band_kernel(const float* __restrict__ y,
 #endif  // SRCNN_PROFILING
 
 }  // namespace wg
-
-// ---- K3h: the last mma.sync kernel (see the file's notes) -----------------
-
-constexpr int TH = 12;                    // output tile rows
-constexpr int NT = 256;                   // threads per block
-constexpr int NWARP = NT / 32;
-constexpr int MT = 2;                     // m-tiles per warp step
-
-template <int MODE, int TW>
-struct Geo {
-  static_assert(MODE == HILO, "the mma.sync kernel is K3h's");
-  static constexpr int RH = TH + 4, RW = TW + 4;  // c2 ring tile
-  static constexpr int M = RH * RW;               // ring positions
-  static constexpr int WH = RH + 8, WW = RW + 8;  // input window
-  static constexpr int GS = M + 4;                // tap-plane stride: spreads banks
-  static constexpr int KS1 = (162 + 15) / 16;     // conv1's k16 steps: 11
-  // shared memory, bytes; every region starts 16-byte aligned
-  static constexpr int B_G = 25 * GS * 4;         // conv3's tap planes
-  static constexpr int B_W1F = KS1 * 8 * 32 * 8;  // conv1 B fragments
-  static constexpr int B_W2F = 4 * 4 * 32 * 8;    // conv2 B fragments
-  static constexpr int B_W3F = 2 * 4 * 32 * 8;    // conv3 B fragments
-  static constexpr int B_BIAS = (C1 + C2 + 4) * 4;
-  static constexpr int B_WIN = 4 * WH * WW;
-  static constexpr size_t SMEM =
-      B_G + B_W1F + B_W2F + B_W3F + B_BIAS + (B_WIN + 15) / 16 * 16;
-  static_assert(RW % 16 == 0 && (M / 16) % (NWARP * MT) == 0, "tiling");
-};
-
-// d += a * b, m16n8k16, bf16 operands, f32 accumulators
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint2 b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
-}
-
-// conv1 weight of GEMM row k (a tap's hi or lo row, k / 2 the tap) and
-// channel n; rows past the taps are zero
-__device__ __forceinline__ float w1_at(const float* params, int k, int n) {
-  const int tap = k / 2;
-  return tap < 81 ? params[OFF_W1 + tap * C1 + n] : 0.f;
-}
-
-// window offset of conv1 tap k (rows past the taps read tap 80: finite,
-// and their weights are zero)
-template <int WW>
-__device__ __forceinline__ int tap_offset(int tap) {
-  tap = min(tap, 80);
-  return (tap / 9) * WW + tap % 9;
-}
-
-// B fragments of the three GEMMs and the biases, into shared memory.
-// Lane (g, q) of (k-step s, n-tile j) holds rows 16s + 2q + {0, 1} and
-// 16s + 2q + {8, 9} of column 8j + g.
-template <int KS1>
-__device__ __forceinline__ void stage_params(const float* __restrict__ params,
-                                             uint2* w1f, uint2* w2f,
-                                             uint2* w3f, float* b1s, int t) {
-  float* b2s = b1s + C1;
-  float* b3s = b2s + C2;
-  for (int i = t; i < KS1 * 8 * 32; i += NT) {
-    const int l = i % 32, j = (i / 32) % 8, s = i / 256;
-    const int n = 8 * j + l / 4, k = 16 * s + 2 * (l % 4);
-    w1f[i] = make_uint2(pack_bf16(w1_at(params, k, n), w1_at(params, k + 1, n)),
-                        pack_bf16(w1_at(params, k + 8, n), w1_at(params, k + 9, n)));
-  }
-  for (int i = t; i < 4 * 4 * 32; i += NT) {
-    const int l = i % 32, j = (i / 32) % 4, s = i / 128;
-    const int n = 8 * j + l / 4, k = 16 * s + 2 * (l % 4);
-    const float* w2 = params + OFF_W2;
-    w2f[i] = make_uint2(pack_bf16(w2[k * C2 + n], w2[(k + 1) * C2 + n]),
-                        pack_bf16(w2[(k + 8) * C2 + n], w2[(k + 9) * C2 + n]));
-  }
-  // conv3 as a GEMM: row k = channel, column n = tap 5 dy + dx (< 25)
-  for (int i = t; i < 2 * 4 * 32; i += NT) {
-    const int l = i % 32, j = (i / 32) % 4, s = i / 128;
-    const int n = 8 * j + l / 4, k = 16 * s + 2 * (l % 4);
-    const float* w3 = params + OFF_W3 + n * C2;
-    w3f[i] = n < 25 ? make_uint2(pack_bf16(w3[k], w3[k + 1]),
-                                 pack_bf16(w3[k + 8], w3[k + 9]))
-                    : make_uint2(0u, 0u);
-  }
-  for (int i = t; i < C1 + C2; i += NT)
-    b1s[i] = i < C1 ? params[OFF_B1 + i] : params[OFF_B2 + i - C1];
-  if (t == 0) b3s[0] = params[OFF_B3];
-}
-
-// conv1, conv2 and the tap GEMM over the tile's c2 ring, from the window in
-// shared memory: the 25 tap planes into gs.
-template <int MODE, int TW>
-__device__ __forceinline__ void ring_gemms(const uint32_t* winp, const uint2* w1f,
-                                           const uint2* w2f, const uint2* w3f,
-                                           const float* b1s, float* gs, int t) {
-  using G = Geo<MODE, TW>;
-  constexpr int RW = G::RW, WW = G::WW, GS = G::GS;
-  constexpr int KS1 = G::KS1;
-  const float* b2s = b1s + C1;
-  const int warp = t / 32, lane = t % 32;
-  const int g = lane / 4, q = lane % 4;   // mma fragment row group, column pair
-
-  // window offsets of the taps this lane feeds to conv1's A fragments:
-  // GEMM rows 16s + 2q + {0, 1, 8, 9} are rows 2 tap + {hi, lo}, so one
-  // tap per register
-  int toff[KS1][4];
-#pragma unroll
-  for (int s = 0; s < KS1; ++s) {
-    const int k = 16 * s + 2 * q;
-    toff[s][0] = toff[s][1] = tap_offset<WW>(k / 2);
-    toff[s][2] = toff[s][3] = tap_offset<WW>(k / 2 + 4);
-  }
-
-  constexpr int NMT = G::M / 16;          // m-tiles in the ring
-  constexpr int SEG = RW / 16;            // m-tiles per ring row
-#pragma unroll 1
-  for (int mt0 = warp * MT; mt0 < NMT; mt0 += NWARP * MT) {
-    int base[MT];                         // window offset of row g at tap 0
-#pragma unroll
-    for (int u = 0; u < MT; ++u) {
-      const int mt = mt0 + u;
-      base[u] = (mt / SEG) * WW + (mt % SEG) * 16 + g;
-    }
-
-    // ---- conv1: [16 x K] x [K x 64] per m-tile ----
-    float acc[MT][8][4];
-#pragma unroll
-    for (int u = 0; u < MT; ++u)
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[u][j][e] = 0.f;
-
-#pragma unroll
-    for (int s = 0; s < KS1; ++s) {
-      uint32_t a[MT][4];
-#pragma unroll
-      for (int u = 0; u < MT; ++u) {
-        const int b = base[u];
-        a[u][0] = winp[b + toff[s][0]];
-        a[u][1] = winp[b + 8 + toff[s][0]];
-        a[u][2] = winp[b + toff[s][2]];
-        a[u][3] = winp[b + 8 + toff[s][2]];
-      }
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const uint2 bf = w1f[(s * 8 + j) * 32 + lane];
-#pragma unroll
-        for (int u = 0; u < MT; ++u) mma_bf16(acc[u][j], a[u], bf);
-      }
-    }
-
-#pragma unroll
-    for (int u = 0; u < MT; ++u) {
-      // ---- h1 = ReLU(conv1 + b1) -> conv2's A fragments, in registers:
-      // n-tiles 2s and 2s+1 of conv1 are k-step s of conv2 ----
-      uint32_t ah[4][4], al[4][4];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int c = 8 * j + 2 * q;
-        const float v0 = fmaxf(acc[u][j][0] + b1s[c], 0.f);
-        const float v1 = fmaxf(acc[u][j][1] + b1s[c + 1], 0.f);
-        const float v2 = fmaxf(acc[u][j][2] + b1s[c], 0.f);
-        const float v3 = fmaxf(acc[u][j][3] + b1s[c + 1], 0.f);
-        const int s = j / 2, r = 2 * (j % 2);
-        ah[s][r] = pack_bf16(v0, v1);
-        ah[s][r + 1] = pack_bf16(v2, v3);
-        al[s][r] = pack_bf16(v0 - bf16_round(v0), v1 - bf16_round(v1));
-        al[s][r + 1] = pack_bf16(v2 - bf16_round(v2), v3 - bf16_round(v3));
-      }
-
-      // ---- conv2: [16 x 64] x [64 x 32] ----
-      float a2[4][4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) a2[j][e] = 0.f;
-#pragma unroll
-      for (int pass = 0; pass < 2; ++pass)
-#pragma unroll
-        for (int s = 0; s < 4; ++s)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const uint2 bf = w2f[(s * 4 + j) * 32 + lane];
-            if (pass == 0)
-              mma_bf16(a2[j], ah[s], bf);
-            else
-              mma_bf16(a2[j], al[s], bf);
-          }
-
-      // ---- c2 = ReLU(conv2 + b2) -> the tap GEMM's A fragments ----
-      uint32_t ch[2][4], cl[2][4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = 8 * j + 2 * q;
-        const float v0 = fmaxf(a2[j][0] + b2s[c], 0.f);
-        const float v1 = fmaxf(a2[j][1] + b2s[c + 1], 0.f);
-        const float v2 = fmaxf(a2[j][2] + b2s[c], 0.f);
-        const float v3 = fmaxf(a2[j][3] + b2s[c + 1], 0.f);
-        const int s = j / 2, r = 2 * (j % 2);
-        ch[s][r] = pack_bf16(v0, v1);
-        ch[s][r + 1] = pack_bf16(v2, v3);
-        cl[s][r] = pack_bf16(v0 - bf16_round(v0), v1 - bf16_round(v1));
-        cl[s][r + 1] = pack_bf16(v2 - bf16_round(v2), v3 - bf16_round(v3));
-      }
-
-      // ---- conv3's tap products: [16 x 32] x [32 x 25 (32)] ----
-      float g3[4][4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) g3[j][e] = 0.f;
-#pragma unroll
-      for (int pass = 0; pass < 2; ++pass)
-#pragma unroll
-        for (int s = 0; s < 2; ++s)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const uint2 bf = w3f[(s * 4 + j) * 32 + lane];
-            if (pass == 0)
-              mma_bf16(g3[j], ch[s], bf);
-            else
-              mma_bf16(g3[j], cl[s], bf);
-          }
-
-      // ---- the 25 tap planes -> shared memory ----
-      const int mt = mt0 + u;
-      const int pos = (mt / SEG) * RW + (mt % SEG) * 16 + g;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int k = 8 * j + 2 * q;
-        if (k < 25) {
-          gs[k * GS + pos] = g3[j][0];
-          gs[k * GS + pos + 8] = g3[j][2];
-        }
-        if (k + 1 < 25) {
-          gs[(k + 1) * GS + pos] = g3[j][1];
-          gs[(k + 1) * GS + pos + 8] = g3[j][3];
-        }
-      }
-    }
-  }
-}
-
-// conv3: shift-add of the (clamped) tap planes, + b3, clamp; output rows
-// below h and columns below w
-template <int MODE, int TW>
-__device__ __forceinline__ void conv3_out(const float* gs, const float* b3s,
-                                          float* __restrict__ out, int r0,
-                                          int q0, int h, int w, int t) {
-  using G = Geo<MODE, TW>;
-  constexpr int RW = G::RW, GS = G::GS;
-  for (int s = t; s < TH * TW; s += NT) {
-    const int ty = s / TW, tx = s % TW;
-    const float* gp = gs + ty * RW + tx;
-    float o = 0.f;
-#pragma unroll
-    for (int dy = 0; dy < 5; ++dy)
-#pragma unroll
-      for (int dx = 0; dx < 5; ++dx) o += gp[(dy * 5 + dx) * GS + dy * RW + dx];
-    const int orow = r0 + ty, ocol = q0 + tx;
-    if (orow < h && ocol < w)
-      out[(long long)orow * w + ocol] = fminf(fmaxf(o + b3s[0], 0.f), 255.f);
-  }
-}
-
-template <int MODE, int TW>
-__global__ void __launch_bounds__(NT, 1)
-fused_srcnn_bf16_kernel(const float* __restrict__ y,
-                        const float* __restrict__ params,
-                        float* __restrict__ out, int h, int w, int f_top,
-                        int f_bottom, int f_left, int f_right) {
-  using G = Geo<MODE, TW>;
-  constexpr int WW = G::WW, WH = G::WH, GS = G::GS;
-  constexpr int KS1 = G::KS1;
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* gs = reinterpret_cast<float*>(smem);                // [25][GS]
-  uint2* w1f = reinterpret_cast<uint2*>(smem + G::B_G);      // [KS1][8][32]
-  uint2* w2f = w1f + KS1 * 8 * 32;                           // [4][4][32]
-  uint2* w3f = w2f + 4 * 4 * 32;                             // [2][4][32]
-  float* b1s = reinterpret_cast<float*>(w3f + 2 * 4 * 32);
-  float* b3s = b1s + C1 + C2;
-  uint32_t* winp = reinterpret_cast<uint32_t*>(             // hi | lo << 16
-      reinterpret_cast<unsigned char*>(b1s) + G::B_BIAS);
-
-  const int t = threadIdx.x;
-  const int r0 = blockIdx.y * TH;         // tile origin, output coordinates
-  const int q0 = blockIdx.x * TW;
-  const int ph = h + 2 * HALO, pw = w + 2 * HALO;
-  y += (long long)blockIdx.z * ph * pw;   // this block's plane
-  out += (long long)blockIdx.z * h * w;
-
-  // Window = padded rows r0 .. r0+WH-1, cols q0 .. q0+WW-1, split once.
-  // Reads past the plane (ragged tiles) are clamped in; they feed only
-  // masked outputs.
-  for (int i = t; i < WH * WW; i += NT) {
-    const int pr = min(r0 + i / WW, ph - 1);
-    const int pc = min(q0 + i % WW, pw - 1);
-    const float v = y[(long long)pr * pw + pc];
-    const float hi = bf16_round(v);
-    winp[i] = bf16_bits(v) | (bf16_bits(v - hi) << 16);
-  }
-  stage_params<KS1>(params, w1f, w2f, w3f, b1s, t);
-  __syncthreads();
-
-  ring_gemms<MODE, TW>(winp, w1f, w2f, w3f, b1s, gs, t);
-  __syncthreads();
-
-  // ---- border clamp on the ring's tap planes: global c2 rows r0-2 ..
-  // r0+RH-3 ----
-  ring_clamp<G::RH, G::RW, NT, 25>(gs, GS, r0, q0, h, w, f_top, f_bottom,
-                                   f_left, f_right);
-
-  conv3_out<MODE, TW>(gs, b3s, out, r0, q0, h, w, t);
-}
-
-cudaError_t launch_k3h(const float* y, float* out, const float* params, int n,
-                       int h, int w, int f_top, int f_bottom, int f_left,
-                       int f_right, cudaStream_t stream) {
-  constexpr int TW = 60;
-  constexpr size_t smem = Geo<HILO, TW>::SMEM;
-  cudaError_t e = cudaFuncSetAttribute(
-      fused_srcnn_bf16_kernel<HILO, TW>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  dim3 grid((w + TW - 1) / TW, (h + TH - 1) / TH, n);
-  fused_srcnn_bf16_kernel<HILO, TW><<<grid, NT, smem, stream>>>(
-      y, params, out, h, w, f_top, f_bottom, f_left, f_right);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
 
 int srcnn_bf16_n_params() { return N_PARAMS; }
 
-// K3h's grid: one block row per 12 output rows (the wgmma kernels walk
-// their tiles with a 64-bit stride and have no such limit)
-int srcnn_bf16_max_rows() { return 65535 * TH; }
+// The tile walk is 64-bit and the grid has one block per SM, so the limit
+// is the int row arithmetic of a tile (r0 + WH, h + 2 HALO), at the file's
+// tallest tile and window (K2's, K3h's and K3n's: 24 rows, 36).
+int srcnn_bf16_max_rows() {
+  using G = wg::Geo<SPLIT, 60>;
+  static_assert(G::TH >= wg::Geo<BF16X1, 60>::TH && G::WH == wg::Geo<BF16X1, 28>::WH &&
+                    G::WH == wg::Geo<HILO, 60>::WH,
+                "K2's tile is the tallest");
+  return INT_MAX - G::WH - 2 * HALO - G::TH;
+}
 
 // kernel: 0 = K2 (split), 1 = K3 (bf16x1), 2 = K3h (split, hi/lo-packed
 // conv1), 3 = K3n (bf16x1, narrow tile).  y: [n, h+12, w+12] f32, out:
@@ -1095,8 +799,8 @@ int srcnn_bf16_forward(const float* y, float* out, const float* params,
       return wg::launch<BF16X1, 60, FULL>(y, out, params, n, h, w, f_top,
                                           f_bottom, f_left, f_right, s);
     case 2:
-      return launch_k3h(y, out, params, n, h, w, f_top, f_bottom, f_left,
-                        f_right, s);
+      return wg::launch<HILO, 60, FULL>(y, out, params, n, h, w, f_top,
+                                        f_bottom, f_left, f_right, s);
     case 3:
       return wg::launch<BF16X1, 28, FULL>(y, out, params, n, h, w, f_top,
                                           f_bottom, f_left, f_right, s);

@@ -52,13 +52,13 @@ __device__ __forceinline__ T quad_sum(T v) {
 // ring, [ROWS][stride c2_stride], ring position (a, b) = global c2
 // (r0 - 2 + a, q0 - 2 + b): the 32 c2 channels, or any per-position
 // function of them, such as conv3's 25 tap products, of any element type
-// (f32 in K1 and K2, int32 in K4; K3, K3n and K5 clamp only the strips
-// that conv3 reads, fused_srcnn_bf16.cu).  Where an edge's flag
-// is set, a ring position outside [0,h) x [0,w) takes the values of the
-// clamped position, which lies in the ring and is never itself rewritten;
-// where it is 0 the ring keeps the values of the real halo.  Only blocks on
-// such an edge do any work.  Ends with __syncthreads() when it ran, so
-// every thread of the block must call it.
+// (f32 in K1, int32 in K4; the bf16 kernels K2, K3, K3h, K3n and K5 clamp
+// only the strips that conv3 reads, fused_srcnn_bf16.cu).  Where an edge's
+// flag is set, a ring position outside [0,h) x [0,w) takes the values of
+// the clamped position, which lies in the ring and is never itself
+// rewritten; where it is 0 the ring keeps the values of the real halo.
+// Only blocks on such an edge do any work.  Ends with __syncthreads() when
+// it ran, so every thread of the block must call it.
 template <int RH, int RW, int NT, int ROWS = C2, typename T>
 __device__ __forceinline__ void ring_clamp(T* c2s, int c2_stride, int r0,
                                            int q0, int h, int w, int f_top,

@@ -1,4 +1,4 @@
-// What the Hopper kernels K1 (fused_srcnn.cu), K2, K3, K3n and K5
+// What the Hopper kernels K1 (fused_srcnn.cu), K2, K3, K3h, K3n and K5
 // (fused_srcnn_bf16.cu) and K4 (fused_srcnn_int8.cu) share: the wgmma
 // plumbing (descriptors of B operands in shared memory, fences and waits,
 // the instruction wrappers with A from registers) and the persistent

@@ -23,10 +23,11 @@ K4 ports ``_kernel_int8`` (reached through ``_fused_int8`` /
 :func:`forward_y_int8_reference`.  The JAX package's int8 tile height
 (``INT8_TH = 80``) follows Mosaic's VMEM limits and is not carried over.
 
-K1, K2, K3, K3n and K4 are ``wgmma`` kernels with a persistent grid;
-K2, K3 and K3n are instances of one bf16 kernel (two passes per GEMM for
-K2, one for K3 and K3n, whose narrower tile changes nothing a pixel
-computes).  K3h is the last ``mma.sync`` kernel.
+Every kernel is a ``wgmma`` kernel with a persistent grid.  K2, K3, K3h
+and K3n are instances of one bf16 kernel: two passes per GEMM for K2; one
+for K3 and K3n, whose narrower tile changes nothing a pixel computes; for
+K3h one conv1 pass over the hi and lo rows of each tap, interleaved along
+K, and two passes for conv2 and the tap GEMM.
 
 K5 ports ``_kernel_band`` (reached through ``_fused_band`` /
 ``forward_y_band``): K3's per-tile body with one block per band of rows,

@@ -22,9 +22,10 @@ that order cannot matter and only the ring, halo, window and clamp
 addressing is tested), must equal the whole-plane result exactly.  The
 border clamp is modelled as the kernel runs it for K3, K3n and K5
 (``clamp_strips``: only the strips outside the clamp box that conv3
-reads).  The CUDA kernels themselves are held to K3's gate and to each
-other bit for bit on the card by tests/test_torch_cuda.py and
-chip_smoke.py.
+reads), which every mode of the bf16 kernel runs: its test covers K2's
+and K3h's 24 x 60 tile (28 x 64 ring) too.  The CUDA kernels themselves
+are held to K3's gate and to each other bit for bit on the card by
+tests/test_torch_cuda.py and chip_smoke.py.
 """
 
 import numpy as np
@@ -41,8 +42,9 @@ from libsrcnn_tpu_torch.models import srcnn
 from test_torch_bf16x2 import K1P, NPAIR, bf16, conv1_taps
 
 BF16X1_MAX, BF16X1_P999 = 2.0, 0.05
-#: kernel -> its output tile (TH, TW); K5 walks K3's tiles in bands
-TILES = {"K3": (23, 60), "K3n": (24, 28), "K5": (23, 60)}
+#: kernel -> its output tile (TH, TW); K5 walks K3's tiles in bands; K2
+#: and K3h share the 24 x 60 tile
+TILES = {"K3": (23, 60), "K3n": (24, 28), "K5": (23, 60), "K2": (24, 60), "K3h": (24, 60)}
 SMS = 132
 
 
@@ -303,6 +305,8 @@ def clamp_strips(g: torch.Tensor, r0, q0, h_end, h, w, flags) -> list:
     ("K3", 0, 0, 50, 50, 130), ("K3", 23, 60, 50, 50, 130), ("K3", 46, 120, 50, 50, 130),
     ("K3", 0, 0, 3, 3, 3), ("K3", 0, 0, 1, 1, 70), ("K5", 16, 0, 40, 32, 61),
     ("K5", 0, 0, 40, 16, 61), ("K3n", 24, 56, 30, 30, 70),
+    ("K2", 0, 0, 50, 50, 130), ("K2", 48, 120, 50, 50, 130), ("K3h", 24, 60, 50, 50, 130),
+    ("K3h", 0, 0, 1, 1, 70),
 ])
 def test_clamp_strips_write_what_conv3_reads_outside_the_box(kernel, r0, q0, h, h_end,
                                                              w, flags):
@@ -467,9 +471,9 @@ def test_rolling_window_equals_a_fetched_window(planes):
 @pytest.mark.parametrize("n,h,w", [(1, 2048, 2048), (6, 257, 301), (1, 3, 3), (2, 1, 70),
                                    (3, 70, 1), (2, 500, 1000), (1, 1080, 1920)])
 def test_walks_cover_every_pixel_once(kernel, n, h, w):
-    """The persistent walks of K3 and K3n, and K5's bands (at 16 rows),
-    at the main path's sizes and ragged ones: every output pixel once, and
-    the persistent blocks' loads differ by at most one tile."""
+    """The persistent walks of K2, K3, K3h and K3n, and K5's bands (at 16
+    rows), at the main path's sizes and ragged ones: every output pixel
+    once, and the persistent blocks' loads differ by at most one tile."""
     th, tw = TILES[kernel]
     covered = np.zeros((n, h, w), np.int64)
     if kernel == "K5":

@@ -435,13 +435,13 @@ def test_full_cut_equals_production_kernel(cuda, kernel):
         assert torch.equal(got, ref)
 
 
-# --- K2, K3, K3n and K4 on wgmma: the persistent grid ----------------------
+# --- K2, K3, K3h, K3n and K4 on wgmma: the persistent grid ----------------
 
-WGMMA_KERNELS = ["K2", "K3", "K3n", "K4"]
+WGMMA_KERNELS = ["K2", "K3", "K3h", "K3n", "K4"]
 
 
 def _k2_or_k4(kernel, p, y, h, w, flags=None):
-    """The kernel's output and its plain version's (K2, K3, K3n, K4)."""
+    """The kernel's output and its plain version's (K2, K3, K3h, K3n, K4)."""
     if kernel == "K4":
         return (fused_conv.forward_y_int8(p, y, h, w, flags),
                 fused_conv.forward_y_int8_reference(p, y, h, w, flags))
@@ -466,10 +466,9 @@ def _assert_k2_k4(kernel, got, ref):
 @pytest.mark.parametrize("kernel", WGMMA_KERNELS)
 def test_k2_k4_persistent_grid_walks_many_tiles(cuda, kernel):
     """One block per SM walks the tiles with a static stride: a 500x1000
-    plane (K2: 21 x 17 = 357 tiles of 24 x 60; K3: 22 x 17 = 374 of 23 x 60;
-    K3n: 756 of 24 x 28; K4: 340 of 26 x 60; each more than two per SM)
-    equals its plain version,
-    ragged edges included."""
+    plane (K2, K3h: 21 x 17 = 357 tiles of 24 x 60; K3: 22 x 17 = 374 of
+    23 x 60; K3n: 756 of 24 x 28; K4: 340 of 26 x 60; each more than two
+    per SM) equals its plain version, ragged edges included."""
     p = _params_of(kernel, cuda)
     y = _plane(512, 1012, 70, cuda)
     before = fused_conv.launches_by[kernel]
@@ -489,6 +488,13 @@ def test_k2_k4_batch_with_zero_flags(cuda, kernel):
     _assert_k2_k4(kernel, got, ref)
     for i in range(3):
         assert torch.equal(got[i], _k2_or_k4(kernel, p, ys[i], 257, 301, (0, 0, 0, 0))[0])
+
+
+def test_bf16_row_limit_is_the_tile_arithmetic(cuda):
+    """The bf16 kernels walk their tiles with a 64-bit stride: no grid
+    dimension limits the rows (K3h's old grid of one block row per 12 rows
+    stopped at 65535 * 12)."""
+    assert fused_conv._lib("fused_srcnn_bf16").srcnn_bf16_max_rows() > 65535 * 12
 
 
 @pytest.mark.parametrize("tile_h", [1, 5, 12, 13, 64])
