@@ -75,7 +75,25 @@ Drives the port's paths on the card through its hand-written CUDA kernels
    K3 and ``tools.int8_ablation``'s of K4 at 2048^2 (each stage's
    CUDA-event median, its delta, MP/s and the production launch), and
    ``tools.trace_kernel`` on K5 at both band heights; each of K5, K6 and
-   K7 launched in that run.
+   K7 launched in that run;
+10. the model zoo at full width with the shipped weights (vdsr depth 16 /
+    32 channels, srcnn955 9-5-5 64 / 32, fsrcnn d 56 s 12 m 4, espcn
+    64 / 32), at ``float32`` and ``bfloat16``, through library convs (no
+    hand kernel: the JAX package runs XLA convs for them; no srcnn kernel
+    may launch): each family's ``upscale`` on the card against the CPU on
+    butterfly 256^2 (x2; x3 and x4 for the LR heads; x2.5 and step-scale
+    x4 for the HR families, pass by pass), within 1 u8 (``float32``) or
+    3 u8 (``bfloat16``: flipped bf16 roundings) on fewer than 2% of the
+    pixels;
+    ``upscale_chunked`` in 256- and 13-row bands, ``upscale_frames`` of
+    the 4-frame clip, ``VideoUpscaler.stream`` and the ensemble (through
+    ``upscale_frames`` and in bands) equal to ``upscale`` bit for bit on
+    a 1024^2 frame; ``bfloat16`` with TF32 allowed against TF32 off (both
+    timed; a gate while the tier runs with TF32 allowed, and the count of
+    values by which TF32-allowed bands miss the frame); each family's
+    1024^2 -> 2048^2 frame pass and conv stack beside its bound; vdsr's
+    chunked rate and peak memory on a 4096x2048 frame at x2 (at most half
+    the one-shot pass's).
 
 The second-to-last line is a JSON record of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
@@ -287,6 +305,228 @@ def ptxas_lines(log: str) -> list[tuple[str, str]]:
         elif "registers" in line or "spill" in line:
             out.append((fn, line.strip()))
     return out
+
+
+# the model zoo (phase 10): family -> the factors held card against CPU on
+# butterfly 256^2, as (scale, step_scale)
+ZOO_SCALES = {"vdsr": [(2.0, False), (2.5, False), (4.0, True)],
+              "srcnn955": [(2.0, False), (2.5, False), (4.0, True)],
+              "fsrcnn": [(2.0, False), (3.0, False), (4.0, False)],
+              "espcn": [(2.0, False), (3.0, False), (4.0, False)]}
+ZOO_TIERS = ("float32", "bfloat16")
+# card against CPU, u8 distance on fewer than 2% of the pixels: float32 F2;
+# bfloat16 3, as a flipped bf16 rounding of an activation (the card and the
+# CPU sum each conv in another order) moves the plane by up to 2.0
+# (tests/test_torch_zoo_models.py) and the u8 cast truncates
+ZOO_CARD_LSB = {"float32": 1, "bfloat16": 3}
+# bfloat16 with TF32 allowed against the same bf16 operands with TF32 off, on
+# each family's plane: the mean (the same products, summed in another order)
+# and the max (a flipped bf16 rounding of an activation moves a pixel by up
+# to ~2, tests/test_torch_zoo_models.py); a gate only while the tier runs
+# with TF32 allowed (ops.conv.BF16_TF32)
+ZOO_TF32_MEAN, ZOO_TF32_MAX = 1e-3, 2.0
+
+
+def zoo_macs_per_pixel(model: str, params: dict, spec) -> float:
+    """Useful MACs per output pixel of a family's conv stack, from its
+    parameters' shapes: every conv's C_out * C_in * k^2 per pixel of its
+    plane; an LR family's LR-plane MACs (its deconv as the dense L x L
+    sub-pixel conv it runs) over scale^2."""
+    from libsrcnn_tpu_torch.models import fsrcnn
+
+    if model == "fsrcnn":
+        L, _, _ = fsrcnn._subpixel_plan(params["deconv_w"].shape[-1], spec.scale)
+        convs = [v for k, v in params.items() if k.endswith("_w") and k != "deconv_w"]
+        macs = sum(w[0].numel() * w.shape[0] for w in convs)
+        macs += L * L * params["deconv_w"].shape[1] * spec.scale ** 2
+        return macs / spec.scale ** 2
+    ws = [v for k, v in params.items() if k != "__spec__" and v.dim() >= 4]
+    macs = sum(w.numel() for w in ws)            # O * I * k^2 (vdsr: L of them)
+    return macs / (spec.scale ** 2 if model == "espcn" else 1)
+
+
+def zoo_phase(card: str, z, frames: list) -> None:
+    """Phase 10: the model zoo's four families at full width (shipped
+    weights) through upscale, serving and the chunked path, at ``float32``
+    and ``bfloat16``, with no hand kernel (library convs, ``ops/conv``)."""
+    import libsrcnn_tpu_torch as lt
+    from libsrcnn_tpu_torch import api, pipeline
+    from libsrcnn_tpu_torch.kernels import fused_conv
+    from libsrcnn_tpu_torch.ops import conv as zconv
+
+    dev = torch.device("cuda")
+    print(f"zoo: conv form on the card {zconv.FORMS['cuda']!r}, on the CPU "
+          f"{zconv.FORMS['cpu']!r}; bfloat16 with TF32 allowed: {zconv.BF16_TF32}")
+    fused_conv.launches = 0
+    butterfly = z["in_butterfly_full"]
+    # 1. card against CPU on butterfly 256^2.  A step-scale chain is held
+    # pass by pass, each CPU pass from the card's input: the u8 round trip
+    # between passes turns a 1 u8 difference of the first pass into 2 u8
+    # (float32, srcnn955) or 7 u8 (bfloat16, vdsr) after the second; two
+    # CPU conv forms, which differ only in their sum order, differ so too
+    def gate(card_out, cpu_out, what, tier):
+        check(card_out.shape == cpu_out.shape, f"zoo {what}: shape")
+        d = np.abs(card_out.astype(int) - cpu_out.astype(int))
+        frac = float((d > 0).mean())
+        check(d.max() <= ZOO_CARD_LSB[tier] and frac < 0.02, f"zoo {what}: card "
+              f"{d.max()} u8 off the CPU on {100 * frac:.3f}% of the pixels")
+        return int(d.max()), frac
+
+    for model, scales in ZOO_SCALES.items():
+        for tier in ZOO_TIERS:
+            worst, chain = (0, 0.0), ""
+            for scale, step in scales:
+                what = f"{model} {tier} x{scale:g}{' step' if step else ''}"
+                cfg = lt.SRCNNConfig(model=model, compute_dtype=tier, step_scale=step)
+                card_out = lt.upscale(butterfly, scale, cfg, device="cuda")
+                if step:
+                    one = dataclasses.replace(cfg, step_scale=False)
+                    src, passes = butterfly, []
+                    while len(passes) < int(scale) // 2:
+                        passes.append((src, lt.upscale(src, 2.0, one, device="cuda")))
+                        src = passes[-1][1]
+                    check(np.array_equal(card_out, src), f"zoo {what}: the chain differs "
+                          f"from its x2 passes on the card")
+                    for i, (x, y) in enumerate(passes):
+                        r = gate(y, lt.upscale(x, 2.0, one, device="cpu"), f"{what} pass {i}",
+                                 tier)
+                        worst = (max(worst[0], r[0]), max(worst[1], r[1]))
+                    cpu_out = lt.upscale(butterfly, scale, cfg, device="cpu")
+                    d = np.abs(card_out.astype(int) - cpu_out.astype(int))
+                    chain = (f"; the whole x{scale:g} chain card vs CPU max {d.max()} u8 on "
+                             f"{100 * float((d > 0).mean()):.3f}% of the pixels")
+                    continue
+                r = gate(card_out, lt.upscale(butterfly, scale, cfg, device="cpu"), what, tier)
+                worst = (max(worst[0], r[0]), max(worst[1], r[1]))
+            print(f"zoo {model} {tier}: butterfly 256^2 at "
+                  + ", ".join(f"x{s:g}{' step (per pass)' if st else ''}" for s, st in scales)
+                  + f": card vs CPU max {worst[0]} u8 on {100 * worst[1]:.4f}% of the "
+                  f"pixels{chain}")
+    # 2. bit-identity on the card: chunked, serving, ensemble
+    f0, clip = frames[0], np.stack(frames)
+    for model in ZOO_SCALES:
+        for tier in ZOO_TIERS:
+            cfg = lt.SRCNNConfig(model=model, compute_dtype=tier)
+            ref, refc = lt.upscale(f0, 2.0, cfg, return_conv_map=True, device="cuda")
+            for band in (256, 13):
+                out, conv = lt.upscale_chunked(f0, 2.0, cfg, band_rows=band, device="cuda")
+                check(np.array_equal(out, ref) and np.array_equal(conv, refc),
+                      f"zoo {model} {tier}: chunked in {band}-row bands differs from "
+                      f"upscale on {int((out != ref).sum())} values")
+            served = lt.upscale_frames(clip, 2.0, cfg, device="cuda")
+            singles = [ref] + [lt.upscale(f, 2.0, cfg, device="cuda") for f in frames[1:]]
+            check(all(np.array_equal(o, s) for o, s in zip(served, singles)),
+                  f"zoo {model} {tier}: upscale_frames differs from its frames")
+            streamed = list(lt.VideoUpscaler(2.0, cfg, device="cuda").stream(frames[:2]))
+            check(all(np.array_equal(o, s) for o, s in zip(streamed, singles)),
+                  f"zoo {model} {tier}: VideoUpscaler.stream differs from its frames")
+            ens = dataclasses.replace(cfg, self_ensemble=True)
+            e_ref, e_refc = lt.upscale(f0, 2.0, ens, return_conv_map=True, device="cuda")
+            e_frames = lt.upscale_frames(clip[:1], 2.0, ens, device="cuda")[0]
+            e_out, e_conv = lt.upscale_chunked(f0, 2.0, ens, band_rows=256, device="cuda")
+            check(np.array_equal(e_frames, e_ref), f"zoo {model} {tier}: ensemble "
+                  f"upscale_frames differs from upscale")
+            check(np.array_equal(e_out, e_ref) and np.array_equal(e_conv, e_refc),
+                  f"zoo {model} {tier}: band-wise ensemble differs from upscale's")
+            print(f"zoo {model} {tier}: 1024^2 x2 chunked in 256- and 13-row bands, "
+                  f"upscale_frames of 4 frames, VideoUpscaler.stream, the ensemble "
+                  f"through upscale_frames and in 256-row bands == upscale bit for bit")
+    check(fused_conv.launches == 0, f"the zoo launched srcnn kernels: "
+          f"{dict(fused_conv.launches_by)}")
+    # why the bf16 tier runs with TF32 off: with it allowed, cuDNN sums a band
+    # in another order than the frame
+    prev, zconv.BF16_TF32 = zconv.BF16_TF32, True
+    try:
+        for model in ("srcnn955", "fsrcnn"):
+            cfg = lt.SRCNNConfig(model=model, compute_dtype="bfloat16")
+            ref = lt.upscale(f0, 2.0, cfg, device="cuda")
+            out, _ = lt.upscale_chunked(f0, 2.0, cfg, band_rows=13, device="cuda")
+            print(f"zoo {model} bfloat16 with TF32 allowed: 13-row bands differ from "
+                  f"upscale on {int((out != ref).sum())} values")
+    finally:
+        zconv.BF16_TF32 = prev
+    # 3. timing, the TF32 check, bounds
+    rng = np.random.default_rng(10)
+    img = torch.tensor(frames[1], device=dev)
+    for model in ZOO_SCALES:
+        mod = pipeline.FAMILY_MODULES[model]
+        hr = model in pipeline.HR_FAMILIES
+        p = api._params_on(None, lt.SRCNNConfig(model=model), dev, 2.0)
+        spec = p["__spec__"]
+        params = {k: v for k, v in p.items() if k != "__spec__"}
+        n = 2048 if hr else 1024
+        y = torch.from_numpy(smooth_plane(rng, n, n)).to(dev)
+
+        def stack(prec):
+            if hr:
+                return mod.forward_hr(params, y, spec, precision=prec)
+            return mod.forward_lr(params, y, spec, precision=prec)
+
+        def bf16_with(tf32: bool):
+            prev, zconv.BF16_TF32 = zconv.BF16_TF32, tf32
+            try:
+                return stack("bf16")
+            finally:
+                zconv.BF16_TF32 = prev
+
+        d = (bf16_with(True) - bf16_with(False)).abs()
+        dmax, dmean = float(d.max()), float(d.mean())
+        t = timed({"on": lambda: bf16_with(True), "off": lambda: bf16_with(False)})
+        print(f"zoo {model}: bfloat16 on the {n}^2 plane, TF32 allowed vs off: max "
+              f"{dmax:.4g}, mean {dmean:.4g}, {100 * float((d > 1e-3).float().mean()):.3f}% "
+              f"of the pixels beyond 1e-3; conv stack {t['on']:.3f} ms with TF32 allowed, "
+              f"{t['off']:.3f} ms with TF32 off (median of 10); the tier runs with TF32 "
+              f"{'allowed' if zconv.BF16_TF32 else 'off'}")
+        if zconv.BF16_TF32:
+            check(dmean <= ZOO_TF32_MEAN and dmax <= ZOO_TF32_MAX,
+                  f"zoo {model}: bfloat16 with TF32 allowed is not the bf16-operand math: "
+                  f"max {dmax}, mean {dmean}")
+        del d
+        macs = zoo_macs_per_pixel(model, p, spec)
+        for tier in ZOO_TIERS:
+            cfg = lt.SRCNNConfig(model=model, compute_dtype=tier)
+            prec = pipeline.family_precision(tier)
+            t = timed({"frame": lambda: pipeline.run_pass(img, p, 2.0, cfg),
+                       "stack": lambda: stack(prec)}, runs=5)
+            tf32 = tier == "bfloat16" and zconv.BF16_TF32
+            peak = PEAK_TF32_FLOPS if tf32 else PEAK_F32_FLOPS
+            ops_ms = 1e3 * 2 * macs * 2048 * 2048 / peak
+            bytes_ms = 1e3 * 4 * (n * n + 2048 * 2048) / PEAK_BYTES
+            print(f"timing on {card}, median of 10: zoo {model} {tier}: 1024^2 -> 2048^2 "
+                  f"frame pass {t['frame']:.3f} ms; conv stack ({n}^2 plane -> 2048^2) "
+                  f"{t['stack']:.3f} ms; bound {max(ops_ms, bytes_ms):.3f} ms "
+                  f"({'operations' if ops_ms >= bytes_ms else 'bytes'}: {macs:,.0f} MACs "
+                  f"per output pixel at the {'TF32' if tf32 else 'FP32'} peak)")
+        del y
+    # 4. the chunked rate and peak memory of vdsr on 4096x2048 at x2
+    big = frame(300, 2048, 4096)
+    cfg = lt.SRCNNConfig(model="vdsr")
+    api._params_on(None, cfg, dev, 2.0)            # weights resident before the peaks
+
+    def peak(fn):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, torch.cuda.max_memory_allocated() - base, time.perf_counter() - t0
+
+    one, one_peak, one_s = peak(lambda: lt.upscale(big, 2.0, cfg, device="cuda"))
+    chk, chk_peak, chk_s = peak(lambda: lt.upscale_chunked(big, 2.0, cfg, band_rows=512,
+                                                           device="cuda")[0])
+    check(np.array_equal(chk, one), "zoo vdsr: chunked 4096x2048 differs from the one-shot "
+          "pass")
+    _, _, chk_s2 = peak(lambda: lt.upscale_chunked(big, 2.0, cfg, band_rows=512,
+                                                   device="cuda"))
+    mp = 8192 * 4096 / 1e6
+    print(f"zoo vdsr float32: 4096x2048 -> 8192x4096 in 512-row bands == the one-shot pass; "
+          f"peak device memory {chk_peak / 2**20:.1f} MiB vs one-shot {one_peak / 2**20:.1f} "
+          f"MiB ({chk_peak / one_peak:.3f}x); chunked {mp / chk_s2:.1f} MP/s "
+          f"({chk_s2 * 1e3:.1f} ms; first call {chk_s * 1e3:.1f} ms), one-shot "
+          f"{mp / one_s:.1f} MP/s, host clock, fetches included")
+    check(chk_peak <= 0.5 * one_peak, f"zoo vdsr chunked peak {chk_peak} B > half the "
+          f"one-shot {one_peak} B")
 
 
 def main() -> int:
@@ -866,6 +1106,9 @@ def main() -> int:
             for r in rows if r["stage"] != "production"))
     for rec, (kernel, stage) in RECORD_CUT.items():
         kern_ms[rec] = next(r["ms"] for r in tables[kernel] if r["stage"] == stage)
+
+    # --- 10. the model zoo ---------------------------------------------------
+    zoo_phase(card, z, frames)
     print(f"chip_smoke ran in {time.perf_counter() - t_start:.1f} s")
 
     check("jax" not in sys.modules and "libsrcnn_tpu" not in sys.modules,

@@ -5,7 +5,9 @@ NVIDIA H100: ``upscale`` (srcnn, any filter, the exact ``float32`` tier,
 the ``bfloat16`` / ``bfloat16_fast`` throughput tiers or the ``int8``
 tier, the flip self-ensemble) runs color conversion and resize as PyTorch
 ops and the fused conv stack as a hand-written CUDA kernel
-(:mod:`.kernels.fused_conv`); :mod:`.serve` batches video clips
+(:mod:`.kernels.fused_conv`); the model zoo's families (``vdsr``,
+``srcnn955``, ``fsrcnn``, ``espcn``, at ``float32`` and ``bfloat16``) run
+their convs as library convs (:mod:`.ops.conv`); :mod:`.serve` batches video clips
 (``upscale_frames``) and streams frames (``VideoUpscaler``);
 ``upscale_chunked`` streams a frame too large for the device through it in
 row bands.  The JAX package ``libsrcnn_tpu`` is the reference the port is

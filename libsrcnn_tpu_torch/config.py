@@ -39,9 +39,9 @@ def chroma_filter(y_filter: FilterType) -> FilterType:
 class SRCNNConfig:
     """Configuration for one upscale call.
 
-    The fields mirror ``libsrcnn_tpu.config.SRCNNConfig``; options the port
-    does not cover yet raise ``NotImplementedError`` when a call uses them
-    (see :func:`libsrcnn_tpu_torch.pipeline.check_supported`).
+    The fields mirror ``libsrcnn_tpu.config.SRCNNConfig``; what the JAX
+    package rejects raises ``ValueError`` here too (see
+    :func:`libsrcnn_tpu_torch.pipeline.check_supported`).
 
     Attributes:
       filter: interpolation filter for the Y channel (chroma policy is
@@ -68,17 +68,24 @@ class SRCNNConfig:
         (``kernels/fused_conv``).  ``None`` (default): the kernel for CUDA
         tensors, the plain PyTorch convs for CPU tensors.  ``True`` on the
         CPU raises; ``False`` runs the plain convs on either device.
-      model: which model family upscales the Y channel.  Only ``"srcnn"``
-        (the reference's 9-1-5) is ported; the rest of the zoo is ROADMAP
-        item M9.
+      model: which model upscales the Y channel: ``"srcnn"`` (the
+        reference's 9-1-5, at the four tiers above), the HR families
+        ``"vdsr"`` and ``"srcnn955"`` (they refine the classically resized
+        plane, so they serve any factor), or the LR families ``"fsrcnn"``
+        and ``"espcn"`` (a learned upscale head per integer factor x2, x3,
+        x4; the scale must match a head exactly, and step-scale chains the
+        x2 head).  The families take ``"float32"`` (exact f32) and
+        ``"bfloat16"`` (bf16 operands, exact products, f32 accumulation on
+        every device, :mod:`libsrcnn_tpu_torch.ops.conv`; the JAX
+        package's CPU backend computes exact f32 for it instead) and raise
+        ``ValueError`` for the other two.
       lane_pack: the JAX package's MXU-lane-packed formulation of the
         learned families' convs (p adjacent output columns share the TPU's
         128 lanes; the same f32 MACs in another reduction order).  The port
         takes the field so that a config written for the JAX package
         builds here, and has nothing to pack on Hopper: ``upscale``
-        ignores it (as the JAX package does for the srcnn model, whose
-        fused kernel owns the conv stack); ``upscale_chunked`` refuses
-        ``True``, as the JAX package's chunked path does.
+        ignores it for every model; ``upscale_chunked`` refuses ``True``,
+        as the JAX package's chunked path does.
     """
 
     filter: FilterType = FilterType.BICUBIC

@@ -44,19 +44,36 @@ from torch import nn
 PARAM_KEYS = ("w1", "b1", "w2", "b2", "w3", "b3")
 
 
-@functools.lru_cache(maxsize=1)
-def _load_npz() -> dict[str, np.ndarray]:
-    # find_spec locates the JAX package without running its __init__
-    # (which imports jax)
+def weights_path(name: str) -> str:
+    """Path of the shipped weights file ``name`` in the JAX package's
+    ``models/weights/``.  ``find_spec`` locates the package without running
+    its ``__init__`` (which imports jax)."""
     spec = importlib.util.find_spec("libsrcnn_tpu")
     if spec is None or not spec.submodule_search_locations:
         raise FileNotFoundError(
-            "the shipped SRCNN weights live in the libsrcnn_tpu package "
-            "(models/weights/srcnn_915.npz), which is not on the path")
-    path = os.path.join(spec.submodule_search_locations[0], "models",
-                        "weights", "srcnn_915.npz")
-    with np.load(path) as z:
+            f"the shipped weights live in the libsrcnn_tpu package "
+            f"(models/weights/{name}), which is not on the path")
+    return os.path.join(spec.submodule_search_locations[0], "models",
+                        "weights", name)
+
+
+@functools.lru_cache(maxsize=1)
+def _load_npz() -> dict[str, np.ndarray]:
+    with np.load(weights_path("srcnn_915.npz")) as z:
         return {k: z[k] for k in PARAM_KEYS}
+
+
+def tensors_from_jax(np_params: dict, keys) -> dict[str, torch.Tensor]:
+    """The entries ``keys`` of a JAX params pytree (numpy, or anything
+    ``np.asarray`` takes) -> f32 CPU tensors: HWIO weights (4-D, or 5-D
+    with a leading stack axis) in OIHW, the rest as they are."""
+    out = {}
+    for k in keys:
+        a = np.asarray(np_params[k], dtype=np.float32)
+        if a.ndim >= 4:
+            a = np.moveaxis(a, (-4, -3, -2, -1), (-2, -1, -3, -4))   # HWIO -> OIHW
+        out[k] = torch.tensor(np.ascontiguousarray(a))
+    return out
 
 
 def params_from_jax(np_params: dict) -> dict[str, torch.Tensor]:
@@ -66,13 +83,7 @@ def params_from_jax(np_params: dict) -> dict[str, torch.Tensor]:
 
     The result feeds both the plain convs here and the fused kernel, which
     packs it with :func:`..kernels.fused_conv.pack_params`."""
-    out = {}
-    for k in PARAM_KEYS:
-        a = np.asarray(np_params[k], dtype=np.float32)
-        if k.startswith("w"):
-            a = a.transpose(3, 2, 0, 1)              # HWIO -> OIHW
-        out[k] = torch.tensor(a)
-    return out
+    return tensors_from_jax(np_params, PARAM_KEYS)
 
 
 def load_params(device: str | torch.device = "cpu") -> dict[str, torch.Tensor]:

@@ -29,13 +29,11 @@ never imported.
 from __future__ import annotations
 
 import functools
-import importlib.util
-import os
 
 import numpy as np
 import torch
 
-from .srcnn import exact_f32
+from .srcnn import exact_f32, weights_path
 
 #: the runtime pack's keys (the calibration's ``a1`` / ``a2`` are dropped)
 INT8_KEYS = ("w1q", "s1", "t1", "w2q", "s2", "t2", "w3q", "d3", "b3")
@@ -50,15 +48,7 @@ INPUT_SCALE = 127.0 / 255.0
 
 @functools.lru_cache(maxsize=1)
 def _load_npz() -> dict[str, np.ndarray]:
-    # find_spec locates the JAX package without running its __init__
-    spec = importlib.util.find_spec("libsrcnn_tpu")
-    if spec is None or not spec.submodule_search_locations:
-        raise FileNotFoundError(
-            "the shipped int8 SRCNN pack lives in the libsrcnn_tpu package "
-            "(models/weights/srcnn_915_int8.npz), which is not on the path")
-    path = os.path.join(spec.submodule_search_locations[0], "models",
-                        "weights", "srcnn_915_int8.npz")
-    with np.load(path) as z:
+    with np.load(weights_path("srcnn_915_int8.npz")) as z:
         return {k: z[k] for k in INT8_KEYS}
 
 

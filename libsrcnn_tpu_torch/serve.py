@@ -7,9 +7,11 @@ port of ``libsrcnn_tpu/serve.py``).
   CUDA launches are asynchronous, so the host uploads and dispatches frame
   t+1 while the card runs frame t.
 
-Every tier the port runs is served, and the flip self-ensemble too.  The
-serve paths run one pass per frame, so step-scale is refused; sharding a
-clip over several cards (``mesh=``) is ROADMAP M14.
+Every model and tier the port runs is served (srcnn at its four tiers, the
+zoo's families at ``float32`` and ``bfloat16``), and the flip
+self-ensemble too.  The serve paths run one pass per frame, so step-scale
+is refused; sharding a clip over several cards (``mesh=``) is ROADMAP
+M14.
 """
 
 from __future__ import annotations
@@ -64,7 +66,7 @@ def upscale_frames(frames: np.ndarray, scale: float = 2.0,
     pipeline.check_supported(config)
     dev = api._device(device)
     clip = _as_u8_clip(frames)
-    params = api._params_on(params, config, dev)
+    params = api._params_on(params, config, dev, scale)
     x = torch.tensor(clip, device=dev)
     if config.self_ensemble:
         out, _ = _ensemble_pass(x, params, float(scale), config)
@@ -120,7 +122,7 @@ class VideoUpscaler:
         self.scale = float(scale)
         self.config = config
         self.device = api._device(device)
-        self.params = api._params_on(params, config, self.device)
+        self.params = api._params_on(params, config, self.device, scale)
 
     def _run_one(self, frame: np.ndarray, sync: bool = False):
         """Dispatch one frame's pass; returns the device tensor, or (with
@@ -130,8 +132,7 @@ class VideoUpscaler:
         runtime raised that leaves the CUDA context usable.  A sticky CUDA
         error poisons the context, and every retry of it fails the same
         way until ``max_retries`` is spent.  Deterministic failures
-        (``ValueError``, ``TypeError``, ``NotImplementedError`` for an
-        unported option) propagate at once."""
+        (``ValueError``, ``TypeError``) propagate at once."""
         last_err = None
         for attempt in range(self.max_retries + 1):
             try:

@@ -6,7 +6,8 @@ from XLA's by <=1 LSB end to end, tests/test_torch_pipeline.py).
 Ported from tests/test_chunked.py for srcnn.  Its
 ``test_chunked_shares_one_program_across_interior_bands`` checks JAX's
 compile cache; PyTorch runs eagerly and compiles nothing per band, so it
-has no counterpart here.  The zoo's band plans are ROADMAP M9.  The kernel
+has no counterpart here.  The zoo's band plans are held in
+tests/test_torch_zoo_paths.py.  The kernel
 path (every float tier through K1-K3) is checked on the card by
 tests/test_torch_cuda.py and chip_smoke.py.
 """
@@ -103,12 +104,10 @@ def test_chunked_edge_flags_per_band(img, monkeypatch):
     assert out.shape == (90, 76, 3)
     assert seen == [((42, 88), 30, 76, (1, 0, 1, 1)), ((42, 88), 30, 76, (0, 0, 1, 1)),
                     ((42, 88), 30, 76, (0, 1, 1, 1))]
-    cuts, _ = chunked._plan_bands(66, 5, 6, np.zeros((66, 1), np.int64),
-                                  np.zeros((66, 1), np.int64))
+    cuts = chunked._cuts(66, 5, 6, "srcnn")
     assert 65 not in cuts and cuts[-1] == 60
-    cuts, _ = chunked._plan_bands(40, 1, 6, np.zeros((40, 1), np.int64),
-                                  np.zeros((40, 1), np.int64))
-    assert cuts == list(range(2, 39))
+    assert chunked._cuts(40, 1, 6, "srcnn") == list(range(2, 39))
+    assert chunked._cuts(40, 5, 16, "vdsr") == [20]    # the HR rule: >= halo from the edges
 
 
 @pytest.mark.parametrize("ft", [FilterType.BICUBIC, FilterType.LANCZOS3])
@@ -131,8 +130,9 @@ def test_chunked_validates():
     img = np.zeros((16, 16, 3), np.uint8)
     with pytest.raises(ValueError, match="unknown model"):
         T.upscale_chunked(img, 2.0, T.SRCNNConfig(model="nope"), device="cpu")
-    with pytest.raises(NotImplementedError, match="M9"):
-        T.upscale_chunked(img, 2.0, T.SRCNNConfig(model="fsrcnn"), device="cpu")
+    out, conv = T.upscale_chunked(img, 2.0, T.SRCNNConfig(model="fsrcnn"),
+                                  device="cpu")            # the zoo runs (M9)
+    assert out.shape == (32, 32, 3) and conv.shape == (32, 32)
     with pytest.raises(ValueError, match="step_scale"):
         T.upscale_chunked(img, 4.0, T.SRCNNConfig(step_scale=True), device="cpu")
     for tier in ("bfloat16", "bfloat16_fast"):     # kernel-only tiers

@@ -144,9 +144,9 @@ def test_serving_rejects_step_scale_and_mesh(clip):
         T.VideoUpscaler(2.0, T.SRCNNConfig(step_scale=True), device="cpu")
     with pytest.raises(NotImplementedError, match="M14"):
         T.upscale_frames(clip, 2.0, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="M9"):
-        T.upscale_frames(clip, 2.0, T.SRCNNConfig(model="fsrcnn"),
-                         device="cpu")
+    out = T.upscale_frames(clip, 2.0, T.SRCNNConfig(model="fsrcnn"),
+                           device="cpu")                   # the zoo runs (M9)
+    assert out.shape == (3, 64, 80, 3)
     with pytest.raises(TypeError):
         T.upscale_frames(clip.astype(np.float32), 2.0, device="cpu")
     with pytest.raises(ValueError):
