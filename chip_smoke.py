@@ -120,7 +120,17 @@ Drives the port's paths on the card through its hand-written CUDA kernels
     within 1e-4 of each parameter's largest; 50 steps on the card and on
     the CPU from that init, per-step losses within 1e-3 relative, the last
     below the first, TF32 off in every forward and backward (read inside
-    them); 10 steps from the shipped weights (``--from-pretrained``),
+    them), and a second card run from that init whose losses and weights
+    equal the first's bit for bit; the first-step card gradient of every
+    leaf of the 9-1-5, vdsr, srcnn955, fsrcnn x2 and espcn x2 (shipped
+    weights, batch 16 of 32^2 patches of butterfly, LR patches for the LR
+    heads, seed 0) against the same loss's float64 gradient on the CPU,
+    every gap printed with its verdict at 1e-4 of the leaf's largest
+    entry, which only the ``cuda`` test enforces (ROADMAP F12: some
+    leaves of vdsr, srcnn955 and espcn miss it by f32 rounding), the same
+    step in float64 on the card within 1e-9 and every f32 gap within
+    1e-2; 10 steps from the
+    shipped weights (``--from-pretrained``),
     whose first loss is below the random init's; 10 steps of fsrcnn x2 at
     full width through ``make_loss_forward`` / ``make_lr_patch_batch``,
     whose loss falls; no kernel launched by training; both 9-1-5 runs
@@ -179,21 +189,21 @@ Drives the port's paths on the card through its hand-written CUDA kernels
     with its two stages on the two ranks, equal to
     ``upscale(use_kernel=False)``; one dp / sp step over
     ``global_mesh(data=2, row=2, col=1)`` against the single-process step
-    on the card (loss within 1e-4 relative, ``w1`` within 1e-6, the JAX
-    worker's gates) and a sharded checkpoint written and reloaded; one
-    step of fsrcnn x2 (shipped weights) with its rows across the ranks
-    (``global_mesh(data=1, row=4, col=1)``) and of srcnn955 with ``col``
-    across them (``(1, 1, 2)``: whole weights, no tp cut), each against
-    the single-process step within the same gates, once with cuDNN's
-    default backward (the first weight gated, every weight's drift
-    printed) and once with its deterministic algorithms (every weight
-    gated), and every gradient within 1e-3 of its largest entry; each
+    on the card (loss within 1e-4 relative, every weight within 1e-6,
+    the JAX worker's gates) and a sharded checkpoint written and
+    reloaded; one step of fsrcnn x2 (shipped weights) with its rows
+    across the ranks (``global_mesh(data=1, row=4, col=1)``) and of
+    srcnn955 with ``col`` across them (``(1, 1, 2)``: whole weights, no
+    tp cut), each against the single-process step within the same gates,
+    every gradient within 1e-3 of its largest entry; every one of these
+    steps taken twice from the same weights, equal bit for bit; each
     rank prints one ``MESH-RANK`` line with its launches and times, and
     the phase fails unless both exit 0 with it.  In this process the
     2x2x2 mesh trainer over ``["cuda:0"] * 8``: 3 steps at batch 16 x
     32^2 against the unsharded trainer (losses within 1e-4 relative,
     ``w1`` within 1e-5, the first step's gradients within 1e-3 of their
-    largest entry (each also printed against the CPU's), the replicas equal bit for bit, TF32 read off in every
+    largest entry (each also printed against the CPU's), the replicas
+    equal bit for bit and equal to a second run's, TF32 read off in every
     forward and backward), the weights served through one K1
     launch within 1 u8 of the plain path; then each zoo family's shipped
     weights at full width (vdsr and srcnn955 on batch 16 x 32^2
@@ -201,7 +211,7 @@ Drives the port's paths on the card through its hand-written CUDA kernels
     trained 5 steps at lr 1e-5 on the same 2x2x2 mesh, and vdsr also over
     row 4 (shares of 8 rows, shorter than its halo of 16), under the same
     gates (the first weight, the first step's gradients), every replica
-    whole, each trained family
+    whole and equal to a second run's, each trained family
     served on butterfly x2 on the card within 1 u8 of the CPU on fewer
     than 2% of the pixels, no kernel launched; every path's time beside
     its single-rank twin.  The ranks' launches are added to the kernels
@@ -214,7 +224,9 @@ Drives the port's paths on the card through its hand-written CUDA kernels
     RGBA 48^2's RGB), the goldens' butterfly validating: a pool of 1024
     built once on the card; 20 steps (``--steps 20``) on the card and on
     the CPU from the same seeded init on that pool, per-step losses within
-    1e-3 relative (phase 12's gate); then the published run, ``--steps
+    1e-3 relative (phase 12's gate); two card runs of those 20 steps at
+    the recipe's own rate (vdsr's 1e-3 included), whose losses and
+    weights are equal bit for bit; then the published run, ``--steps
     200 --eval-every 100``, batch 64, whose last loss is below its first,
     TF32 read off inside every card step's forward and backward; the best
     checkpoint written with its ``meta_*`` entries, reloaded by the
@@ -904,9 +916,74 @@ def io_phase(card: str, z, frames: list, frame_outs: list) -> dict:
 # tests/test_torch_train.py)
 TRAIN_STEPS, TRAIN_LR = 50, 1e-4
 TRAIN_GRAD_RTOL, TRAIN_LOSS_RTOL = 1e-4, 1e-3
+# the first-step card gradient of the 9-1-5 and of each family against the
+# same loss's gradient in float64 on the CPU, at TRAIN_GRAD_RTOL of each
+# leaf's largest entry: shipped weights, the goldens' butterfly, batch 16 of
+# 32^2 patches (LR patches for the LR heads), seed 0.  Some leaves miss it
+# by f32 rounding alone (ROADMAP F12): a ReLU whose pre-activation lies
+# within f32's error of 0 takes the other branch (vdsr), or the leaf sums
+# terms whose magnitudes are hundreds to thousands of times the result
+# (a bias fed by an output near its target).  The same step in float64 on
+# the card equals the CPU's within F64_CARD_RTOL, and no f32 leaf may be
+# off by GRAD_LOST_RTOL (a lost or scaled gradient is off by order 1; one
+# ReLU flip moved a vdsr leaf of the CPU's f32 gradient by 5.4e-3)
+F64_GRAD_FAMILIES = ("srcnn", "vdsr", "srcnn955", "fsrcnn", "espcn")
+F64_CARD_RTOL, GRAD_LOST_RTOL = 1e-9, 1e-2
 # step timing shapes: the CLI's default batch, and the SRCNN paper's 33^2
 # sub-images at batch 128
 TRAIN_TIMED = ((16, 32), (128, 33))
+
+
+def f64_gradient_gaps(img: np.ndarray) -> None:
+    """Phase 12's gradient check: for the 9-1-5 and each family
+    (:data:`F64_GRAD_FAMILIES`, shipped weights, full width), the
+    first-step card gradient of every leaf against the same loss's
+    gradient in float64 on the CPU, over the f64 leaf's largest entry;
+    each gap printed with its verdict at :data:`TRAIN_GRAD_RTOL` (the
+    ``cuda`` test ``test_card_gradient_within_f64_gradient`` enforces it
+    and reports a miss's cause).  Fails if the same step in float64 on the
+    card is off the CPU's by more than :data:`F64_CARD_RTOL` or an f32 gap
+    passes :data:`GRAD_LOST_RTOL`."""
+    from libsrcnn_tpu_torch import pipeline
+    from libsrcnn_tpu_torch.models import fsrcnn, srcnn
+    from libsrcnn_tpu_torch.models.srcnn import exact_f32
+    from libsrcnn_tpu_torch.train import loss_fn, make_patch_batch
+
+    def grads(params, forward, batch, dev, dtype):
+        p = {k: v.detach().to(dev, dtype).clone().requires_grad_() for k, v in params.items()}
+        with exact_f32(dev):
+            loss_fn(p, *(torch.from_numpy(b).to(dev, dtype) for b in batch),
+                    forward).backward()
+        return {k: v.grad.cpu().double() for k, v in p.items()}
+
+    def gaps(got, want):
+        return {k: float((got[k] - g).abs().max() / g.abs().max()) for k, g in want.items()}
+
+    for model in F64_GRAD_FAMILIES:
+        if model == "srcnn":
+            params, forward = srcnn.load_params(), None
+        else:
+            mod = pipeline.FAMILY_MODULES[model]
+            params, spec = mod.load_params(2)
+            forward = mod.make_loss_forward(spec)
+        if model in pipeline.LR_FAMILIES:
+            batch = fsrcnn.make_lr_patch_batch([img], 16, 32, spec, seed=0, device="cpu")
+        else:
+            batch = make_patch_batch([img], 16, 32, 2.0, seed=0, device="cpu")
+        f64 = grads(params, forward, batch, torch.device("cpu"), torch.float64)
+        card = gaps(grads(params, forward, batch, torch.device("cuda"), torch.float32), f64)
+        card64 = gaps(grads(params, forward, batch, torch.device("cuda"), torch.float64), f64)
+        bad = {k: v for k, v in card.items() if not v <= TRAIN_GRAD_RTOL}
+        print(f"training: {model} (shipped weights) first-step card gradient against the "
+              f"f64 CPU gradient, batch 16 x {batch[0].shape[1]}^2 of butterfly, max abs "
+              f"diff / max |g64| per leaf: " + ", ".join(f"{k} {v:.3g}" for k, v in card.items())
+              + f"; within {TRAIN_GRAD_RTOL}: " + ("every leaf" if not bad else
+                                                  f"not {sorted(bad)} (ROADMAP F12)")
+              + f"; the same step in f64 on the card: {worst(card64)} off")
+        check(max(card64.values()) <= F64_CARD_RTOL,
+              f"{model}: the card's f64 gradient is off the CPU's: {card64}")
+        check(max(card.values()) <= GRAD_LOST_RTOL,
+              f"{model}: a card gradient is off the f64 gradient by order 1: {card}")
 
 
 def train_phase(card: str, z) -> dict:
@@ -945,6 +1022,7 @@ def train_phase(card: str, z) -> dict:
           f"parameter: " + ", ".join(f"{k} {v:.3g}" for k, v in rel.items()))
     check(all(v <= TRAIN_GRAD_RTOL for v in rel.values()),
           f"step-0 gradients card vs CPU: {rel}")
+    f64_gradient_gaps(img)
 
     # 2. 50 Adam steps on the card and on the CPU from the same init; TF32
     # read inside the forward and the backward of every card step
@@ -962,6 +1040,13 @@ def train_phase(card: str, z) -> dict:
     on_card = Trainer(params=init, learning_rate=TRAIN_LR, forward=watched, device="cuda")
     losses = on_card.fit(batches)
     torch.cuda.synchronize()
+    # a second card run from the same init on the same batches: equal weights
+    again = Trainer(params=init, learning_rate=TRAIN_LR, device="cuda")
+    check(again.fit(batches) == losses and all(
+        torch.equal(again.params[k], on_card.params[k]) for k in init),
+        f"two card runs of {TRAIN_STEPS} steps from one seed ended on other weights")
+    print(f"training: a second card run of {TRAIN_STEPS} steps from the same init: losses "
+          f"and every weight equal bit for bit")
     losses_cpu = Trainer(params=init, learning_rate=TRAIN_LR, device="cpu").fit(batches)
     worst = max(abs(a - b) / b for a, b in zip(losses, losses_cpu))
     print(f"training: {TRAIN_STEPS} Adam steps (lr {TRAIN_LR}) from a seeded init on the "
@@ -1411,9 +1496,9 @@ MESH_LOSS_RTOL, MESH_W1_ATOL = 1e-4, 1e-5
 # of its 32 rows per share, shorter than its halo of 16), 5 steps each at
 # MESH_TRAIN_LR under the mesh trainer's gates; the two-rank cases (family
 # -> global mesh axes, devices per rank): fsrcnn's rows and srcnn955's col
-# across the ranks, one step under the ranks' gates on every weight, with
-# cuDNN's deterministic algorithms in the backward too (and once without
-# them, the first weight gated, every weight's drift printed).  Adam's
+# across the ranks, one step under the ranks' gates on every weight.  Every
+# mesh case also runs a second time from the same weights on the same
+# batches and must end on weights equal bit for bit.  Adam's
 # steps do not change when a gradient is scaled, so each case, and the
 # 9-1-5's mesh trainer, also holds every parameter's gradient after its
 # first step to the unsharded one's on the card: the largest difference
@@ -1496,13 +1581,11 @@ def rank_family_steps(rank: int, rng, ms: dict) -> dict:
     step of a zoo family (shipped weights, full width) on each global mesh
     against the single-process step on the card, fsrcnn x2 with its rows
     across the ranks, srcnn955 with col across them (whole weights: its
-    keys are the 9-1-5's, and no tp cut applies).  Each pair of steps runs
-    twice: with cuDNN's default backward, the first weight held to the
-    9-1-5's gate on ``w1`` and every weight's drift printed, then with
-    cuDNN's deterministic algorithms in the backward too, every weight
-    held to that gate; both times every gradient within
-    :data:`MESH_GRAD_RTOL`.  Adds the step times to ``ms``; returns each
-    family's losses, drifts and gradient gaps."""
+    keys are the 9-1-5's, and no tp cut applies): the loss and every
+    weight within the 9-1-5's gates, every gradient within
+    :data:`MESH_GRAD_RTOL`, and a second mesh step from the same weights
+    equal to the first bit for bit.  Adds the step times to ``ms``;
+    returns each family's loss, drift and gradient gap."""
     from libsrcnn_tpu_torch import pipeline
     from libsrcnn_tpu_torch.parallel import distributed
     from libsrcnn_tpu_torch.train import trainer as tr
@@ -1516,46 +1599,35 @@ def rank_family_steps(rank: int, rng, ms: dict) -> dict:
         fb = (rng.uniform(0, 255, (8, 24, 24)).astype(np.float32),
               rng.uniform(0, 255, (8, hr, hr)).astype(np.float32))
         fmesh = distributed.global_mesh(*axes, devices=["cuda:0"] * per_rank)
-        first = next(iter(params))
-        out = {"axes": axes, "first": first}
-        for deterministic in (False, True):
-            with torch.backends.cudnn.flags(
-                    enabled=True, benchmark=False, deterministic=deterministic,
-                    allow_tf32=torch.backends.cudnn.allow_tf32):
-                single = tr.Trainer(params=params, learning_rate=1e-4, forward=fwd,
-                                    device="cuda")
-                loss_single = single.fit([fb])[0]
-                ft = tr.Trainer(params=params, learning_rate=1e-4, forward=fwd,
-                                mesh=fmesh, device="cuda")
-                loss_f = ft.fit([fb])[0]
-            gaps = grad_gaps(ft, step_grads(single))
-            gap = max(gaps.values())
-            fw = ft.params
-            drifts = {k: float((fw[k] - single.params[k].detach()).abs().max())
-                      for k in params}
-            gated = max(drifts.values()) if deterministic else drifts[first]
-            what = "every weight" if deterministic else first
-            check(abs(loss_f - loss_single) <= RANK_LOSS_RTOL * max(1.0, abs(loss_single))
-                  and gated <= RANK_W1_ATOL and gap <= MESH_GRAD_RTOL,
-                  f"rank {rank} {model} step on {axes} (cuDNN deterministic "
-                  f"{deterministic}): loss {loss_f} vs {loss_single}, {what} drift "
-                  f"{gated}, gradient gap {gap}")
-            every = [None, None]
-            torch.distributed.all_gather_object(
-                every, [{k: v.detach().cpu() for k, v in r.items()} for r in ft.replicas])
-            reps = [r for part in every for r in part]
-            check(all(r[k].shape == params[k].shape and torch.equal(r[k], reps[0][k])
-                      for r in reps for k in params),
-                  f"rank {rank} {model} on {axes}: a replica was cut or differs")
-            tag = "det" if deterministic else "default"
-            out.update({f"loss_{tag}": loss_f, f"loss_single_{tag}": loss_single,
-                        f"drift_{tag}": drifts[first],
-                        f"drift_any_{tag}": max(drifts.values()),
-                        f"grad_gap_{tag}": worst(gaps)})
-            if not deterministic:
-                ms[f"family {model}"] = host_ms(lambda: ft.fit([fb]))
-                ms[f"family {model} single"] = host_ms(lambda: single.fit([fb]))
-        family[model] = out
+        single = tr.Trainer(params=params, learning_rate=1e-4, forward=fwd, device="cuda")
+        loss_single = single.fit([fb])[0]
+        runs = [tr.Trainer(params=params, learning_rate=1e-4, forward=fwd, mesh=fmesh,
+                           device="cuda") for _ in range(2)]
+        losses = [t.fit([fb])[0] for t in runs]
+        ft = runs[0]
+        gaps = grad_gaps(ft, step_grads(single))
+        gap = max(gaps.values())
+        fw = ft.params
+        drifts = {k: float((fw[k] - single.params[k].detach()).abs().max()) for k in params}
+        check(abs(losses[0] - loss_single) <= RANK_LOSS_RTOL * max(1.0, abs(loss_single))
+              and max(drifts.values()) <= RANK_W1_ATOL and gap <= MESH_GRAD_RTOL,
+              f"rank {rank} {model} step on {axes}: loss {losses[0]} vs {loss_single}, "
+              f"weight drifts {drifts}, gradient gap {gap}")
+        check(losses[1] == losses[0] and all(
+            torch.equal(a[k], b[k]) for a, b in zip(runs[0].replicas, runs[1].replicas)
+            for k in a), f"rank {rank} {model} on {axes}: two steps from the same weights "
+              f"differ")
+        every = [None, None]
+        torch.distributed.all_gather_object(
+            every, [{k: v.detach().cpu() for k, v in r.items()} for r in ft.replicas])
+        reps = [r for part in every for r in part]
+        check(all(r[k].shape == params[k].shape and torch.equal(r[k], reps[0][k])
+                  for r in reps for k in params),
+              f"rank {rank} {model} on {axes}: a replica was cut or differs")
+        family[model] = {"axes": axes, "loss": losses[0], "loss_single": loss_single,
+                         "drift": max(drifts.values()), "grad_gap": worst(gaps)}
+        ms[f"family {model}"] = host_ms(lambda: ft.fit([fb]))
+        ms[f"family {model} single"] = host_ms(lambda: single.fit([fb]))
     return family
 
 
@@ -1659,17 +1731,21 @@ def mesh_rank(rank: int, port: int, ck_dir: str) -> int:
     twin = tr.Trainer(params=srcnn.load_params(), learning_rate=1e-4, device="cuda")
     loss_local = twin.fit([batch])[0]
     tmesh = distributed.global_mesh(data=2, row=2, col=1, devices=["cuda:0"] * 2)
-    trainer = tr.Trainer(params=srcnn.load_params(), learning_rate=1e-4, mesh=tmesh,
-                         device="cuda")
-    loss = trainer.fit([batch])[0]
-    dw = float((trainer.params["w1"] - twin.params["w1"].detach()).abs().max())
+    runs = [tr.Trainer(params=srcnn.load_params(), learning_rate=1e-4, mesh=tmesh,
+                       device="cuda") for _ in range(2)]
+    loss, loss_again = (t.fit([batch])[0] for t in runs)
+    trainer = runs[0]
+    whole = trainer.params
+    dw = max(float((whole[k] - twin.params[k].detach()).abs().max()) for k in whole)
     check(abs(loss - loss_local) <= RANK_LOSS_RTOL * max(1.0, abs(loss_local)) and
           dw <= RANK_W1_ATOL, f"rank {rank} dp / sp step: loss {loss} vs {loss_local}, "
-          f"w1 drift {dw}")
+          f"weight drift {dw}")
+    check(loss_again == loss and all(torch.equal(a[k], b[k]) for a, b in
+                                     zip(runs[0].replicas, runs[1].replicas) for k in a),
+          f"rank {rank} dp / sp step: two steps from the same weights differ")
     tr.save_checkpoint_sharded(ck_dir, trainer.param_shards(), step=trainer.step)
     torch.distributed.barrier()
     back, step = tr.load_checkpoint_sharded(ck_dir, device="cuda")
-    whole = trainer.params
     check(step == 1 and all(torch.equal(back[k], whole[k]) for k in whole),
           "sharded checkpoint round trip")
 
@@ -1680,7 +1756,7 @@ def mesh_rank(rank: int, port: int, ck_dir: str) -> int:
     torch.distributed.destroy_process_group()
     print("MESH-RANK " + json.dumps({
         "rank": rank, "launches": {k: v for k, v in driven.items() if v}, "ms": ms,
-        "loss": loss, "loss_single": loss_local, "w1_drift": dw, "family": family}),
+        "loss": loss, "loss_single": loss_local, "drift": dw, "family": family}),
         flush=True)
     return 0
 
@@ -1743,6 +1819,10 @@ def family_mesh_phase(card: str, img: np.ndarray) -> None:
         gaps = grad_gaps(ft, first_grads)
         cpu_gaps = (rel_gaps(first_grads, cpu_grads), grad_gaps(ft, cpu_grads))
         losses += ft.fit(fb[1:])
+        again = tr.Trainer(params=params, learning_rate=MESH_TRAIN_LR, device="cuda",
+                           forward=fwd, mesh=ft.mesh)
+        repeat = again.fit(fb) == losses and all(
+            torch.equal(a[k], b[k]) for a, b in zip(ft.replicas, again.replicas) for k in a)
         rel = max(abs(a - b) / b for a, b in zip(losses, losses_plain))
         first = next(iter(params))
         dw = float((ft.params[first] - plain_f.params[first].detach()).abs().max())
@@ -1755,13 +1835,16 @@ def family_mesh_phase(card: str, img: np.ndarray) -> None:
               f"losses max rel diff {rel:.3g}, {first} max abs diff {dw:.3g}, the first "
               f"step's gradients {worst(gaps)} of their largest entry off (against the "
               f"CPU's: the unsharded card's {worst(cpu_gaps[0])}, the mesh's "
-              f"{worst(cpu_gaps[1])}); replicas whole and equal: {whole}; TF32 read "
-              f"{len(tf32)} times, allowed {sum(tf32)} times")
+              f"{worst(cpu_gaps[1])}); replicas whole and equal: {whole}; a second run "
+              f"equal bit for bit: {repeat}; TF32 read {len(tf32)} times, allowed "
+              f"{sum(tf32)} times")
         check(rel <= MESH_LOSS_RTOL and dw <= MESH_W1_ATOL and
               max(gaps.values()) <= MESH_GRAD_RTOL,
               f"{model} mesh trainer on {shape} vs unsharded: losses {rel}, {first} {dw}, "
               f"gradients {worst(gaps)}")
         check(whole, f"{model} mesh trainer on {shape}: a replica was cut or differs")
+        check(repeat, f"{model} mesh trainer on {shape}: a second run from the same "
+              f"weights ended on other weights")
         check(len(tf32) == 2 * n * FAMILY_TRAIN_STEPS and not any(tf32),
               f"TF32 in a {model} mesh step: {len(tf32)} reads, {sum(tf32)} allowed")
         cfg = lt.SRCNNConfig(model=model)
@@ -1849,8 +1932,8 @@ def mesh_phase(card: str, z, frames: list) -> dict:
         ms = r["ms"]
         print(f"mesh rank {r['rank']} of 2 on {card} (gloo, ['cuda:0'] * 2 each): "
               f"launches {r['launches']}; dp / sp step loss {r['loss']:.4f} vs single "
-              f"{r['loss_single']:.4f}, w1 drift {r['w1_drift']:.2e}; sharded checkpoint "
-              f"reloaded")
+              f"{r['loss_single']:.4f}, weight drift {r['drift']:.2e}, a second step from "
+              f"the same weights equal bit for bit; sharded checkpoint reloaded")
         for tier in ("float32", "bfloat16", "bfloat16_fast"):
             print(f"timing on {card}, host clock, median of 3: rank {r['rank']} "
                   f"upscale_tiled {tier} 1024^2 -> 2048^2 over global (1, 2, 2), its 2 "
@@ -1864,12 +1947,10 @@ def mesh_phase(card: str, z, frames: list) -> dict:
         print(f"timing on {card}, host clock: rank {r['rank']} upscale_pipelined of the "
               f"4-frame clip over 2 stages on 2 ranks (one call) {ms['pipelined']:.1f} ms")
         for model, f in r["family"].items():
-            for tag in ("default", "det"):
-                print(f"mesh rank {r['rank']}: {model} step over global "
-                      f"{tuple(f['axes'])} (cuDNN backward {tag}) loss "
-                      f"{f['loss_' + tag]:.4f} vs single {f['loss_single_' + tag]:.4f}, "
-                      f"{f['first']} drift {f['drift_' + tag]:.3g} (any weight "
-                      f"{f['drift_any_' + tag]:.3g}), gradient gap {f['grad_gap_' + tag]}")
+            print(f"mesh rank {r['rank']}: {model} step over global {tuple(f['axes'])} "
+                  f"loss {f['loss']:.4f} vs single {f['loss_single']:.4f}, weight drift "
+                  f"{f['drift']:.3g}, gradient gap {f['grad_gap']}, a second step equal "
+                  f"bit for bit")
             print(f"timing on {card}, host clock, median of 3: rank {r['rank']} {model} "
                   f"step over global {tuple(f['axes'])} {ms['family ' + model]:.3f} ms, "
                   f"single-process {ms['family ' + model + ' single']:.3f} ms")
@@ -1916,6 +1997,11 @@ def mesh_phase(card: str, z, frames: list) -> dict:
         losses += mt.fit(batches[1:])
     finally:
         tr._forward_915_mesh = forward
+    again = tr.Trainer(params=srcnn.load_params(), learning_rate=MESH_TRAIN_LR, mesh=mesh,
+                       device="cuda")
+    check(again.fit(batches) == losses and all(
+        torch.equal(a[k], b[k]) for a, b in zip(mt.replicas, again.replicas) for k in a),
+        "a second 2x2x2 mesh trainer from the same weights ended on other weights")
     rel = max(abs(a - b) / b for a, b in zip(losses, losses_plain))
     dw = float((mt.params["w1"] - plain_t.params["w1"].detach()).abs().max())
     reps = {}
@@ -1928,8 +2014,8 @@ def mesh_phase(card: str, z, frames: list) -> dict:
           f"max rel diff {rel:.3g}, w1 max abs diff {dw:.3g}, the first step's "
           f"gradients {worst(gaps)} of their largest entry off (against the CPU's: the "
           f"unsharded card's {worst(cpu_gaps[0])}, the mesh's {worst(cpu_gaps[1])}); "
-          f"replicas equal bit for bit; TF32 read {len(tf32)} times, allowed "
-          f"{sum(tf32)} times")
+          f"replicas equal bit for bit, and to a second run's; TF32 read {len(tf32)} "
+          f"times, allowed {sum(tf32)} times")
     check(rel <= MESH_LOSS_RTOL and dw <= MESH_W1_ATOL and
           max(gaps.values()) <= MESH_GRAD_RTOL,
           f"mesh trainer vs unsharded: losses {rel}, w1 {dw}, gradients {worst(gaps)}")
@@ -1974,7 +2060,9 @@ RECIPE_LOSS_RTOL = 1e-3
 # its trajectory is unstable: a start 2 ulp away, or another f32 sum order,
 # parts its losses by 1e-3 to 1e-2 within a dozen steps (measured once, card
 # against card, PERF.md), so a trajectory gate there would test nothing past
-# the first steps
+# the first steps.  Two card runs at each recipe's own rate, vdsr's 1e-3
+# included, must still end on equal weights: the card's steps are
+# deterministic
 RECIPE_CHECK_LR = "1e-4"
 RECIPE_SERVE_LSB, RECIPE_SERVE_FRAC = 1, 0.02
 CALIB_CODE_FRAC, CALIB_RTOL = 1e-3, 1e-5
@@ -2087,11 +2175,19 @@ def recipes_phase(card: str, z) -> dict:
                 worst = max(gaps)
                 check(worst <= RECIPE_LOSS_RTOL,
                       f"{name} recipe: card vs CPU losses over {n} steps: {worst}")
+                # two card runs of 20 steps at the recipe's own rate: equal
+                own = [tool.run(args(n, n, "cuda"), pool=pool) for _ in range(2)]
+                check(own[0].losses == own[1].losses and own[0].best.keys() ==
+                      own[1].best.keys() and all(
+                          torch.equal(torch.from_numpy(v), torch.from_numpy(own[1].best[k]))
+                          for k, v in own[0].best.items()),
+                      f"{name} recipe: two card runs of {n} steps at lr {a.lr} ended on "
+                      f"other weights")
                 # the published run
                 run = tool.run(a, pool=pool)
                 torch.cuda.synchronize()
                 ms = 1e3 * run.step_seconds / len(run.losses)
-                check(len(tf32) == 2 * (n + RECIPE_STEPS) and not any(tf32),
+                check(len(tf32) == 2 * (3 * n + RECIPE_STEPS) and not any(tf32),
                       f"{name} recipe: TF32 in a step: {len(tf32)} reads, {sum(tf32)} allowed")
                 check(run.losses[-1] < run.losses[0],
                       f"{name} recipe: loss {run.losses[0]} -> {run.losses[-1]}")
@@ -2113,7 +2209,8 @@ def recipes_phase(card: str, z) -> dict:
                 check(not any(got.values()), f"{name} recipe launched a kernel: {got}")
                 print(f"recipe {name} ({n_imgs} corpus images, pool {a.pool}, batch "
                       f"{a.batch}): {n} steps at lr {RECIPE_CHECK_LR} card vs CPU, loss max "
-                      f"rel diff {worst:.3g}; {a.steps} steps loss {run.losses[0]:.2f} -> {run.losses[-1]:.2f}, best "
+                      f"rel diff {worst:.3g}; two card runs of {n} steps at lr {a.lr} equal "
+                      f"bit for bit; {a.steps} steps loss {run.losses[0]:.2f} -> {run.losses[-1]:.2f}, best "
                       f"validation {run.best_score:.3f} dB at step {run.best_step}, "
                       f"{ms:.3f} ms per step{'' if lr_head else ' (clipped)'} (mean of {a.steps}, "
                       f"host clock, each step ends reading its loss)")

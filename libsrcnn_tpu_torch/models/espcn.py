@@ -25,7 +25,7 @@ import torch
 
 from ..ops.conv import conv_same
 from .ring import HaloForward, edge_counts, replicate_ring
-from .srcnn import normal, tensors_from_jax, tensors_to_jax, weights_path
+from .srcnn import normal, tensors_from_jax, tensors_to_jax, to_float, weights_path
 
 PARAM_KEYS = ("c1_w", "c1_b", "c2_w", "c2_b", "c3_w", "c3_b")
 
@@ -127,7 +127,7 @@ def forward_lr(params: dict, lr_y: torch.Tensor, spec: ESPCNSpec | None = None,
     ``precision``: ``"exact"`` or ``"bf16"`` (:mod:`..ops.conv`)."""
     spec = spec or spec_of(params)
     squeeze = lr_y.dim() == 2
-    x = (lr_y[None] if squeeze else lr_y)[:, None].to(torch.float32)
+    x = to_float((lr_y[None] if squeeze else lr_y)[:, None], params["c1_w"])
     x = x * (1.0 / 127.5) - 1.0               # [0,255] -> [-1,1]
     h = torch.tanh(conv_same(x, params["c1_w"], precision, params["c1_b"]))
     h = torch.tanh(conv_same(h, params["c2_w"], precision, params["c2_b"]))
@@ -162,7 +162,8 @@ def _forward_ring(params: dict, ext: torch.Tensor, edges, spec: ESPCNSpec, halo:
     out-of-image rows / columns (:func:`.vdsr._forward_ring`)."""
     r = spec.scale
     squeeze = ext.dim() == 2
-    x = (ext[None] if squeeze else ext)[:, None].to(torch.float32) * (1.0 / 127.5) - 1.0
+    x = to_float((ext[None] if squeeze else ext)[:, None], params["c1_w"])
+    x = x * (1.0 / 127.5) - 1.0
     x = replicate_ring(x, edges)
     h = torch.tanh(conv_same(x, params["c1_w"], precision, params["c1_b"]))
     h = replicate_ring(h, edges)

@@ -33,7 +33,7 @@ import torch.nn.functional as F
 from ..ops.conv import conv, conv_same, conv_transpose_same
 from .espcn import pixel_shuffle
 from .ring import HaloForward, edge_counts, replicate_ring, zero_ring
-from .srcnn import normal, tensors_from_jax, tensors_to_jax, weights_path
+from .srcnn import normal, tensors_from_jax, tensors_to_jax, to_float, weights_path
 
 
 @dataclasses.dataclass(frozen=True)
@@ -191,7 +191,7 @@ def forward_lr(params: dict, lr_y: torch.Tensor, spec: FSRCNNSpec | None = None,
     ``precision``: ``"exact"`` or ``"bf16"`` (:mod:`..ops.conv`)."""
     spec = spec or spec_of(params)
     squeeze = lr_y.dim() == 2
-    h = (lr_y[None] if squeeze else lr_y)[:, None].to(torch.float32)
+    h = to_float((lr_y[None] if squeeze else lr_y)[:, None], params["feat_w"])
     for name in ("feat", "shrink", *(f"map{i}" for i in range(spec.m)), "expand"):
         h = _prelu(conv_same(h, params[f"{name}_w"], precision, params[f"{name}_b"]),
                    params[f"{name}_a"])
@@ -230,7 +230,8 @@ def _forward_ring(params: dict, ext: torch.Tensor, edges, spec: FSRCNNSpec, halo
     whose context reaches partly past the image edge)."""
     r = spec.scale
     squeeze = ext.dim() == 2
-    h = replicate_ring((ext[None] if squeeze else ext)[:, None].to(torch.float32), edges)
+    h = to_float((ext[None] if squeeze else ext)[:, None], params["feat_w"])
+    h = replicate_ring(h, edges)
     for name in ("feat", "shrink", *(f"map{i}" for i in range(spec.m))):
         h = _prelu(conv_same(h, params[f"{name}_w"], precision, params[f"{name}_b"]),
                    params[f"{name}_a"])

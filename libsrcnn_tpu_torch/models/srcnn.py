@@ -153,12 +153,18 @@ class SRCNN915(nn.Module):
 
 
 def exact_f32(device: torch.device):
-    """Context that keeps cuDNN and cuBLAS off TF32 on CUDA (no-op on CPU)."""
+    """Context that keeps cuDNN and cuBLAS off TF32 on CUDA, with cuDNN's
+    autotuner off and only its deterministic algorithms (no-op on CPU).
+
+    A training step runs its forward, backward and update inside it, so
+    two runs from one seed end on equal weights, as the JAX trainer's do:
+    cuDNN's default weight and data gradients may sum with atomics."""
     if device.type != "cuda":
         return contextlib.nullcontext()
     stack = contextlib.ExitStack()
     stack.enter_context(torch.backends.cudnn.flags(
-        enabled=torch.backends.cudnn.enabled, allow_tf32=False))
+        enabled=torch.backends.cudnn.enabled, benchmark=False, deterministic=True,
+        allow_tf32=False))
     prev = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     stack.callback(setattr, torch.backends.cuda.matmul, "allow_tf32", prev)
@@ -175,6 +181,14 @@ PRECISIONS = ("exact", "split", "bf16x1")
 #: both bf16 tiers compute this there)
 TIER_PRECISION = {"float32": "exact", "bfloat16": "bf16x1",
                   "bfloat16_fast": "bf16x1"}
+
+
+def to_float(t: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``t`` in the dtype the plain forwards compute in with weights ``w``:
+    f32, or float64 with float64 weights (the f64 reference that training's
+    gradients are held to).  A plane of any dtype, float64 included, meets
+    f32 weights in f32."""
+    return t.to(torch.promote_types(w.dtype, torch.float32))
 
 
 def round_bf16(t: torch.Tensor) -> torch.Tensor:
@@ -246,11 +260,40 @@ def conv3(params: dict, c2: torch.Tensor, precision: str = "exact",
     return torch.clamp(h3[:, 0], 0.0, 255.0) if clamp else h3[:, 0]
 
 
+def _fold(g: torch.Tensor, p: int, dim: int) -> torch.Tensor:
+    """The adjoint of replicate padding by ``p`` along ``dim``: each edge
+    strip of ``g`` summed with the edge it copies, one ``sum`` per side."""
+    n = g.shape[dim] - 2 * p
+    if n == 1:
+        return g.sum(dim, keepdim=True)
+    return torch.cat([g.narrow(dim, 0, p + 1).sum(dim, keepdim=True),
+                      g.narrow(dim, p + 1, n - 2),
+                      g.narrow(dim, p + n - 1, p + 1).sum(dim, keepdim=True)], dim)
+
+
+class _EdgePad(torch.autograd.Function):
+    """``F.pad(x, (p, p, p, p), mode="replicate")`` with a backward that
+    sums in a fixed order: the columns' edge strips first, then the rows'
+    (:func:`_fold`).  ``F.pad``'s own CUDA backward adds with atomics, in
+    another order from run to run."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, p: int) -> torch.Tensor:
+        ctx.p = p
+        return F.pad(x, (p, p, p, p), mode="replicate")
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        return _fold(_fold(g, ctx.p, -1), ctx.p, -2), None
+
+
 def edge_pad(x: torch.Tensor, p: int) -> torch.Tensor:
     """Replicate-pad H and W of an NCHW tensor by ``p`` pixels each side,
     the reference's clamp-to-edge expansion (`libsrcnn.cpp:362-392`; the
-    JAX package's ``srcnn.edge_pad``, which pads NHWC)."""
-    return F.pad(x, (p, p, p, p), mode="replicate")
+    JAX package's ``srcnn.edge_pad``, which pads NHWC).  The values are
+    ``F.pad``'s; the gradient sums in a fixed order (:class:`_EdgePad`),
+    so a training step on the card gives the same weights every run."""
+    return _EdgePad.apply(x, p) if p else x
 
 
 def forward_y(params: dict, y: torch.Tensor, tier: str = "float32", *,
@@ -266,7 +309,7 @@ def forward_y(params: dict, y: torch.Tensor, tier: str = "float32", *,
         raise ValueError(f"tier must be one of {tuple(TIER_PRECISION)}, got {tier!r}")
     precision = TIER_PRECISION[tier]
     squeeze = y.dim() == 2
-    x = (y[None] if squeeze else y)[:, None].to(torch.float32)
+    x = to_float((y[None] if squeeze else y)[:, None], params["w1"])
     with exact_f32(x.device):
         c2 = conv12(params, edge_pad(x, 4), precision)
         out = conv3(params, edge_pad(c2, 2), precision, clamp)

@@ -28,7 +28,7 @@ from torch import nn
 from ..ops.conv import conv_same
 from . import srcnn
 from .ring import HaloForward, edge_counts, replicate_ring
-from .srcnn import normal, tensors_from_jax, tensors_to_jax, weights_path
+from .srcnn import normal, tensors_from_jax, tensors_to_jax, to_float, weights_path
 
 PARAM_KEYS = ("w1", "b1", "w2", "b2", "w3", "b3")
 
@@ -138,7 +138,7 @@ def forward_hr(params: dict, y_hr: torch.Tensor, spec: ModelSpec | None = None,
     shape.  ``precision``: ``"exact"`` or ``"bf16"`` (:mod:`..ops.conv`).
     ``spec`` is implied by the parameters' shapes."""
     squeeze = y_hr.dim() == 2
-    x = (y_hr[None] if squeeze else y_hr)[:, None].to(torch.float32)
+    x = to_float((y_hr[None] if squeeze else y_hr)[:, None], params["w1"])
     out = _stack(params, x, precision, lambda t: t)
     if clamp:
         out = torch.clamp(out, 0.0, 255.0)
@@ -174,7 +174,7 @@ def _forward_ring(params: dict, ext: torch.Tensor, edges, halo: int, clamp: bool
     """:func:`forward_hr_halo` with ``edges`` counting each side's
     out-of-image rows / columns (:func:`.vdsr._forward_ring`)."""
     squeeze = ext.dim() == 2
-    x = (ext[None] if squeeze else ext)[:, None].to(torch.float32)
+    x = to_float((ext[None] if squeeze else ext)[:, None], params["w1"])
     h = _stack(params, x, precision, lambda t: replicate_ring(t, edges))
     if clamp:
         h = torch.clamp(h, 0.0, 255.0)

@@ -27,7 +27,7 @@ import torch
 
 from ..ops.conv import conv_same
 from .ring import HaloForward, edge_counts, replicate_ring
-from .srcnn import normal, tensors_from_jax, tensors_to_jax, weights_path
+from .srcnn import normal, tensors_from_jax, tensors_to_jax, to_float, weights_path
 
 PARAM_KEYS = ("in_w", "in_b", "mid_w", "mid_b", "out_w", "out_b")
 
@@ -124,7 +124,7 @@ def forward_hr(params: dict, y_hr: torch.Tensor, spec: VDSRSpec | None = None,
     shape: ``y + residual``.  ``precision``: ``"exact"`` or ``"bf16"``
     (:mod:`..ops.conv`)."""
     squeeze = y_hr.dim() == 2
-    y = (y_hr[None] if squeeze else y_hr).to(torch.float32)
+    y = to_float(y_hr[None] if squeeze else y_hr, params["in_w"])
     out = y + _residual(params, y[:, None], precision, lambda t: t)
     if clamp:
         out = torch.clamp(out, 0.0, 255.0)
@@ -154,7 +154,7 @@ def _forward_ring(params: dict, ext: torch.Tensor, edges, halo: int, clamp: bool
     out-of-image rows / columns (fewer than ``halo`` on a training share
     whose context reaches partly past the image edge)."""
     squeeze = ext.dim() == 2
-    y = (ext[None] if squeeze else ext).to(torch.float32)
+    y = to_float(ext[None] if squeeze else ext, params["in_w"])
     out = y + _residual(params, y[:, None], precision,
                         lambda t: replicate_ring(t, edges))
     if clamp:

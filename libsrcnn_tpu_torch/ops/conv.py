@@ -50,7 +50,7 @@ import contextlib
 import torch
 import torch.nn.functional as F
 
-from ..models.srcnn import exact_f32, round_bf16
+from ..models.srcnn import edge_pad, exact_f32, round_bf16
 
 PRECISIONS = ("exact", "bf16")
 
@@ -73,17 +73,14 @@ def _context(device: torch.device, precision: str):
     if device.type != "cuda":
         return contextlib.nullcontext()
     if precision == "exact" or not BF16_TF32:
-        stack = exact_f32(device)
-    else:
-        stack = contextlib.ExitStack()
-        stack.enter_context(torch.backends.cudnn.flags(
-            enabled=torch.backends.cudnn.enabled, allow_tf32=True))
-        prev = torch.backends.cuda.matmul.allow_tf32
-        torch.backends.cuda.matmul.allow_tf32 = True
-        stack.callback(setattr, torch.backends.cuda.matmul, "allow_tf32", prev)
+        return exact_f32(device)
+    stack = contextlib.ExitStack()
     stack.enter_context(torch.backends.cudnn.flags(
-        enabled=torch.backends.cudnn.enabled, benchmark=False,
-        deterministic=True, allow_tf32=torch.backends.cudnn.allow_tf32))
+        enabled=torch.backends.cudnn.enabled, benchmark=False, deterministic=True,
+        allow_tf32=True))
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    stack.callback(setattr, torch.backends.cuda.matmul, "allow_tf32", prev)
     return stack
 
 
@@ -122,12 +119,10 @@ def conv(x: torch.Tensor, w: torch.Tensor, precision: str = "exact",
 
 def conv_same(x: torch.Tensor, w: torch.Tensor, precision: str = "exact",
               bias: torch.Tensor | None = None) -> torch.Tensor:
-    """SAME conv with edge-replicate padding (odd square kernels), plus
-    ``bias``: [N,C,H,W] -> [N,O,H,W]."""
-    p = w.shape[-1] // 2
-    if p:
-        x = F.pad(x, (p, p, p, p), mode="replicate")
-    return conv(x, w, precision, bias)
+    """SAME conv with edge-replicate padding (odd square kernels,
+    :func:`..models.srcnn.edge_pad`), plus ``bias``: [N,C,H,W] ->
+    [N,O,H,W]."""
+    return conv(edge_pad(x, w.shape[-1] // 2), w, precision, bias)
 
 
 def conv_transpose_same(x: torch.Tensor, w: torch.Tensor, r: int,

@@ -5,7 +5,9 @@ A step is MSE on the Y channel in the [0, 255] domain through a model's
 plain forward with its final clamp off, autograd, and one Adam update
 (``torch.optim.Adam`` with optax's defaults).  The forward, the backward
 and the update run with TF32 off in cuDNN and cuBLAS (``exact_f32``), so
-the card computes in true f32 as the JAX package's CPU reference does.
+the card computes in true f32 as the JAX package's CPU reference does,
+and under cuDNN's deterministic algorithms with its autotuner off, so two
+runs from one seed end on equal weights, as the JAX trainer's do.
 The hand kernels have no backward and are never reached here.
 
 The parameters live in an ``nn.ParameterDict`` of OIHW leaves on the
