@@ -1,4 +1,4 @@
-"""ctypes bindings for the native host library (``native/srcnn_host.cpp``)
+"""ctypes bindings for the native host library (``csrc/srcnn_host.cpp``)
 -- port of ``libsrcnn_tpu/io/native.py``.
 
 The device compute is PyTorch / CUDA; the native tier covers the host data
@@ -6,7 +6,9 @@ path: OpenMP color packing, double-precision contribution tables, and a
 lock-free frame ring for streaming producers (:class:`FrameRing`, which
 ``serve.VideoUpscaler.stream_from_ring`` consumes).
 
-The library is built from ``native/srcnn_host.cpp`` at first use with
+The library is built from ``csrc/srcnn_host.cpp`` beside this module, the
+port's own copy of the JAX package's ``native/srcnn_host.cpp`` (kept
+byte-equal to it by ``tests/test_torch_native.py``), at first use with
 ``g++`` into ``kernels/_build/`` (git-ignored), with the flags of
 ``native/Makefile`` less ``-march=native``: a library built for one host's
 CPU may fault on another's.  Without ``-ffast-math`` and with
@@ -35,8 +37,7 @@ from ..config import FilterType
 from ..kernels._build import BUILD_DIR
 from ..ops.filters import FILTERS
 
-SOURCE = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", "..",
-                                      "native", "srcnn_host.cpp"))
+SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc", "srcnn_host.cpp")
 CXX_FLAGS = ("-O3", "-fPIC", "-fopenmp", "-ffp-contract=off", "-std=c++17",
              "-shared")
 

@@ -19,9 +19,14 @@ gradients are held to.
 * Each family's forward keeps a float64 input's dtype: with float64
   parameters it is within 1e-3 u8 of the f32 forward, and the gradient of
   its float64 loss passes ``torch.autograd.gradcheck``.
-* On the card (``cuda``), each family's first-step gradient is within
-  1e-4 of each leaf's largest entry of the float64 gradient on the CPU
-  (shipped weights, batch 16 x 32^2 of the butterfly, seed 0).
+* Each family's first-step f32 gradient passes ``tests/grad_gate.py``'s
+  gate: the float64 gradient on the CPU along the f32 run's own ReLU /
+  PReLU branches, each leaf within a limit set by how far its sum cancels
+  (shipped weights, batch 16 x 32^2 of the butterfly, seed 0): the CPU's
+  own gradient here, the card's (``cuda``) on a card.  The gate fails a
+  leaf with a batch sample left out or scaled by 1 + 2e-3, and its guard
+  fails a mask with one channel inverted; pinned to f64's own branches
+  the reference is the plain f64 gradient.
 * One training step of each case runs under
   ``torch.use_deterministic_algorithms(True)`` without raising, in a child
   process (``CUBLAS_WORKSPACE_CONFIG=:4096:8``; the global flag must not
@@ -52,12 +57,12 @@ from libsrcnn_tpu_torch.ops import conv
 from libsrcnn_tpu_torch.parallel import make_mesh
 from libsrcnn_tpu_torch.train import Trainer, loss_fn, make_patch_batch, trainer
 
+import grad_gate
+
 HERE = os.path.dirname(os.path.abspath(__file__))
 GOLDENS = os.path.join(HERE, "goldens", "goldens.npz")
 #: the f64 forward against the f32 one, in u8 (f32 sums of a few layers)
 F64_ATOL = 1e-3
-#: the card's f32 gradient against the f64 one, over the leaf's largest entry
-GRAD_RTOL = 1e-4
 STEPS_CPU, STEPS_CARD, MESH_STEPS = 3, 10, 3
 CHILD_TIMEOUT = 600
 MESH_AXES = {"data": 2, "row": 2, "col": 2}
@@ -327,91 +332,93 @@ def test_float64_loss_gradient_passes_gradcheck(butterfly, name):
                                     rtol=1e-4)
 
 
-# -- the card's gradient against float64 ---------------------------------------------
+# -- the float32 gradient against float64 (tests/grad_gate.py) -----------------------
 
-def _recorded_forward(params, forward, batch, dev, dtype, backward: bool):
-    """The loss forward on ``dev`` in ``dtype`` with every ReLU / PReLU
-    pre-activation and every ``ops.conv.conv`` call (input, weight,
-    output) recorded, the outputs' gradients kept when ``backward``:
-    -> (pre-activations, convs)."""
-    acts, convs = [], []
-    relu, prelu, plain_conv = torch.relu, fsrcnn._prelu, conv.conv
+@pytest.fixture(scope="module")
+def cpu_gate(butterfly):
+    """name -> (the card case's inputs, the CPU's f32 gradient, its
+    branches, the f64 reference along them), each computed once."""
+    done = {}
 
-    def rec_relu(x):
-        acts.append(x.detach().cpu().double())
-        return relu(x)
-
-    def rec_prelu(x, a):
-        acts.append(x.detach().cpu().double())
-        return prelu(x, a)
-
-    def rec_conv(x, w, precision="exact", bias=None):
-        out = plain_conv(x, w, precision, bias)
-        if backward:
-            out.retain_grad()
-        convs.append((x, w, out))
-        return out
-
-    torch.relu, fsrcnn._prelu, conv.conv = rec_relu, rec_prelu, rec_conv
-    try:
-        p = {k: v.detach().to(dev, dtype).requires_grad_(backward) for k, v in params.items()}
-        with torch.set_grad_enabled(backward), exact_f32(dev):
-            loss = loss_fn(p, *(torch.from_numpy(b).to(dev, dtype) for b in batch), forward)
-            if backward:
-                loss.backward()
-    finally:
-        torch.relu, fsrcnn._prelu, conv.conv = relu, prelu, plain_conv
-    return acts, convs
+    def get(name):
+        if name not in done:
+            case = family_case(name, butterfly, True, 16, 32)
+            grads, masks = grad_gate.gradient(*case, "cpu")
+            done[name] = (case, grads, masks, grad_gate.reference(*case, masks))
+        return done[name]
+    return get
 
 
-def gradient_miss(gaps: dict, params, forward, batch, dev, most: int = 8) -> str:
-    """Why a card gradient misses the f64 one: the leaves' gaps; up to
-    ``most`` ReLU / PReLU pre-activations whose sign differs between the
-    card (f32) and float64 on the CPU (activation index in forward order,
-    batch, channel, row, column, card value, f64 value); and for each
-    ``ops.conv.conv`` in forward order how far its weight and bias
-    gradients cancel in f64 (the largest sum of the terms' magnitudes over
-    the largest entry: an f32 sum of such terms is off by about the terms'
-    own relative error times this ratio)."""
-    card, _ = _recorded_forward(params, forward, batch, dev, torch.float32, False)
-    f64, convs = _recorded_forward(params, forward, batch, torch.device("cpu"),
-                                   torch.float64, True)
-    flips = []
-    for i, (a, b) in enumerate(zip(card, f64)):
-        for idx in torch.nonzero((a >= 0) != (b >= 0))[:most - len(flips)].tolist():
-            flips.append((i, *idx, float(a[tuple(idx)]), float(b[tuple(idx)])))
-    ratios = []
-    for x, w, y in convs:
-        g = y.grad
-        gw = torch.nn.grad.conv2d_weight(x.detach(), w.shape, g)
-        aw = torch.nn.grad.conv2d_weight(x.detach().abs(), w.shape, g.abs())
-        ratios.append((float(aw.max() / gw.abs().max()),
-                       float(g.abs().sum((0, 2, 3)).max() / g.sum((0, 2, 3)).abs().max())))
-    return (f"gaps {gaps}; pre-activations of another sign (activation, batch, channel, "
-            f"row, column, card, f64): {flips}; per conv, (weight, bias) cancellation: "
-            f"{ratios}")
+@pytest.mark.parametrize("name", list(FAMILIES))
+def test_cpu_gradient_within_gate(cpu_gate, name):
+    """The CPU's own f32 gradient (its branches pinned) passes the gate on
+    the card case's inputs, with a kappa recorded for every leaf."""
+    _, grads, _, ref = cpu_gate(name)
+    assert None not in ref.kappa.values(), ref.kappa
+    assert grad_gate.misses(grads, ref) == [], grad_gate.describe(grads, ref)
+
+
+@pytest.mark.parametrize("name", list(FAMILIES))
+def test_reference_on_own_branches_is_plain_gradient(butterfly, name):
+    """Pinned to the f64 forward's own branches, the reference is the plain
+    f64 gradient bit for bit: the tape's masked ReLU, its PReLU and
+    its recorded convs compute what the library's forward does."""
+    lr_head = FAMILIES[name][2]
+    case = family_case(name, butterfly, False, 4, 8 if lr_head else 16)
+    grads, masks = grad_gate.gradient(*case, "cpu", torch.float64)
+    ref = grad_gate.reference(*case, masks)
+    assert ref.flips == 0 and (len(masks) > 0) == (name != "espcn")
+    for k, g in grads.items():
+        assert torch.equal(ref.plain[k], g) and torch.equal(ref.grad[k], g), k
+
+
+@pytest.mark.parametrize("control", ["sample dropped", "scaled by 1 + 2e-3"])
+@pytest.mark.parametrize("name", list(FAMILIES))
+def test_gate_catches_a_wrong_leaf(cpu_gate, name, control):
+    """Negative controls: one leaf at a time of the CPU's f32 gradient made
+    wrong, by leaving batch sample 0 out of it (the batch mean's gradient
+    less that sample's share) or by scaling it by 1 + 2e-3; the gate
+    fails on that leaf and the guard still passes."""
+    (params, forward, (lr_y, hr_y)), grads, _, ref = cpu_gate(name)
+    if control == "sample dropped":
+        part, _ = grad_gate.gradient(params, forward, (lr_y[1:], hr_y[1:]), "cpu")
+        wrong = {k: v * ((len(lr_y) - 1) / len(lr_y)) for k, v in part.items()}
+    else:
+        wrong = {k: v * (1 + 2e-3) for k, v in grads.items()}
+    for k in grads:
+        got = grad_gate.misses({**grads, k: wrong[k]}, ref)
+        assert [m.split(":")[0] for m in got] == [k], (k, got)
+
+
+@pytest.mark.parametrize("name", [n for n in FAMILIES if n != "espcn"])
+def test_guard_rejects_an_inverted_mask(cpu_gate, name):
+    """Negative control: the first activation's channel 0 takes the other
+    branch everywhere; the guard fails on it."""
+    case, grads, masks, _ = cpu_gate(name)
+    bad = [m.clone() for m in masks]
+    bad[0][:, 0] = ~bad[0][:, 0]
+    ref = grad_gate.reference(*case, bad)
+    assert ref.worst_flip > grad_gate.FLIP_RTOL and ref.where_worst[:3:2] == (0, 0)
+    assert grad_gate.misses(grads, ref)[0].startswith("guard:")
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", list(FAMILIES))
 def test_card_gradient_within_f64_gradient(cuda, butterfly, name):
-    """The first step's card gradient of every leaf within 1e-4 of the
-    f64 leaf's largest entry of the same loss's float64 gradient on the
-    CPU: shipped weights, batch 16 x 32^2 of butterfly (32^2 LR patches
-    for the LR heads), seed 0.  vdsr, srcnn955 and espcn miss it on an
-    H100 by f32 rounding alone (ROADMAP F12: ReLU pre-activations within
-    f32's error of 0; bias and weight gradients whose terms cancel); a
-    miss reports its cause (:func:`gradient_miss`)."""
-    params, forward, batch = family_case(name, butterfly, True, 16, 32)
-    grads = {}
-    for dev, dtype in ((cuda, torch.float32), (torch.device("cpu"), torch.float64)):
-        p = {k: v.detach().to(dev, dtype).clone().requires_grad_() for k, v in params.items()}
-        with exact_f32(dev):
-            loss_fn(p, *(torch.from_numpy(b).to(dev, dtype) for b in batch), forward).backward()
-        grads[dtype] = {k: v.grad.cpu().double() for k, v in p.items()}
-    gaps = {k: float((grads[torch.float32][k] - g).abs().max() / g.abs().max())
-            for k, g in grads[torch.float64].items()}
-    assert max(gaps.values()) <= GRAD_RTOL, gradient_miss(gaps, params, forward, batch, cuda)
+    """The first step's card gradient of every leaf against the same loss's
+    float64 gradient on the CPU along the card's own ReLU / PReLU branches
+    (shipped weights, batch 16 x 32^2 of butterfly, 32^2 LR patches for the
+    LR heads, seed 0), within ``min(1e-3, max(1e-4, 256 * 2**-24 *
+    kappa))`` of the reference leaf's largest entry, kappa being how far the
+    leaf's sum cancels (tests/grad_gate.py).  That is the size of f32
+    rounding in such a sum; a branch the card takes where f64 takes the
+    other must lie within 1e-4 of its activation's largest magnitude.  A
+    lost batch sample or a gradient scaled by 1 + 2e-3 passes 1e-3, so
+    both stay caught (``test_gate_catches_a_wrong_leaf``)."""
+    case = family_case(name, butterfly, True, 16, 32)
+    grads, masks = grad_gate.gradient(*case, cuda)
+    ref = grad_gate.reference(*case, masks)
+    assert grad_gate.misses(grads, ref) == [], grad_gate.describe(grads, ref)
 
 
 # -- under torch.use_deterministic_algorithms(True) ----------------------------------

@@ -1,5 +1,5 @@
 """The port's native host library (``libsrcnn_tpu_torch.io.native``, built
-from native/srcnn_host.cpp at first use) against the port's torch / numpy
+at first use from the port's own copy of native/srcnn_host.cpp) against the port's torch / numpy
 ops and the JAX package's color and table ops, its FrameRing, and the ring
 feeding ``VideoUpscaler.stream_from_ring`` on the CPU.  The JAX package's
 own native module is left alone: it runs ``make`` in native/ when its
@@ -28,7 +28,7 @@ GOLDENS = os.path.join(os.path.dirname(__file__), "goldens", "goldens.npz")
 
 
 def test_builds_from_source_into_build_dir():
-    """The library is the port's own build of native/srcnn_host.cpp (never
+    """The library is the port's own build of its copy of native/srcnn_host.cpp (never
     the binary in native/), keyed by a hash of the source and flags."""
     assert native.available(), native.build_error
     path = native.library_path()
@@ -36,6 +36,17 @@ def test_builds_from_source_into_build_dir():
     assert os.path.dirname(path).endswith(os.path.join("kernels", "_build"))
     assert "-march=native" not in native.CXX_FLAGS
     assert native._lib()._name == path
+
+
+def test_source_is_a_copy_of_the_jax_side():
+    """The port builds from a copy inside its own package (shipped as
+    package data), byte-equal to the JAX side's native/srcnn_host.cpp."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    assert native.SOURCE == os.path.join(os.path.dirname(os.path.abspath(native.__file__)),
+                                         "csrc", "srcnn_host.cpp")
+    with open(native.SOURCE, "rb") as a, \
+            open(os.path.join(root, "native", "srcnn_host.cpp"), "rb") as b:
+        assert a.read() == b.read()
 
 
 @pytest.mark.parametrize("depth", [3, 4])
