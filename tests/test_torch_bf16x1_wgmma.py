@@ -7,8 +7,8 @@ too, and each GEMM sums k16 step by k16 step into an f32 accumulator.
 conv1's K order is K2's pair order (``conv1_taps``, 45 pairs padded to K
 96), the tap GEMM is padded to N 32, and conv3 is the ring clamp on the 25
 tap planes and a fixed-order shift-add.  This file holds a test-only
-emulator of that arithmetic and holds it to K3's gate (p99.9 of |diff|
-<= 0.05, max <= 2.0; tests/test_torch_kernel.py says why) against
+emulator of that arithmetic and holds it to K3's gate (every pixel
+within the flip bound of ``tests/bf16x1_gate.py``, max <= 2.0) against
 ``fused_conv.forward_y_reference(precision="bf16x1")`` and against the JAX
 package's ``_kernel`` at ``BF16X1`` with the pair pack in Pallas interpret
 mode, in its full and halo modes.
@@ -24,7 +24,7 @@ border clamp is modelled as the kernel runs it for K3, K3n and K5
 (``clamp_strips``: only the strips outside the clamp box that conv3
 reads), which every mode of the bf16 kernel runs: its test covers K2's
 and K3h's 24 x 60 tile (28 x 64 ring) too.  The CUDA kernels themselves
-are held to K3's gate and to each other bit for bit on the card by
+are held to the same gate and to each other bit for bit on the card by
 tests/test_torch_cuda.py and chip_smoke.py.
 """
 
@@ -35,13 +35,13 @@ import torch.nn.functional as F
 
 import jax.numpy as jnp
 
+import bf16x1_gate
 from libsrcnn_tpu.kernels import fused_conv as jfused
 from libsrcnn_tpu.models import srcnn as jsrcnn
 from libsrcnn_tpu_torch.kernels import fused_conv
 from libsrcnn_tpu_torch.models import srcnn
 from test_torch_bf16x2 import K1P, NPAIR, bf16, conv1_taps
 
-BF16X1_MAX, BF16X1_P999 = 2.0, 0.05
 #: kernel -> its output tile (TH, TW); K5 walks K3's tiles in bands; K2
 #: and K3h share the 24 x 60 tile
 TILES = {"K3": (23, 60), "K3n": (24, 28), "K5": (23, 60), "K2": (24, 60), "K3h": (24, 60)}
@@ -147,10 +147,11 @@ def _halo_plane(y):
     return F.pad(torch.from_numpy(y)[None, None], (6, 6, 6, 6), mode="replicate")[0, 0]
 
 
-def _assert_bf16x1_close(got, ref):
-    d = np.abs(np.asarray(got) - np.asarray(ref))
-    assert d.max() <= BF16X1_MAX, d.max()
-    assert np.quantile(d, 0.999) <= BF16X1_P999, np.quantile(d, 0.999)
+def _assert_bf16x1_close(got, ref, params, y_padded, h, w, flags=None):
+    """K3's gate: every pixel within its flip bound on this halo plane."""
+    v = bf16x1_gate.judge(torch.as_tensor(np.asarray(got)), torch.as_tensor(np.asarray(ref)),
+                          bf16x1_gate.flip_bound(params, y_padded, h, w, flags))
+    assert v.ok, str(v)
 
 
 # --- the arithmetic --------------------------------------------------------
@@ -166,7 +167,7 @@ def test_emulator_matches_bf16x1_plain_version(params, shape, flags):
     got = forward_y_bf16x1(params, yh, h, w, flags)
     ref = fused_conv.forward_y_reference(params, yh, h, w, flags, precision="bf16x1")
     assert got.shape == (h, w)
-    _assert_bf16x1_close(got.numpy(), ref.numpy())
+    _assert_bf16x1_close(got, ref, params, yh, h, w, flags)
 
 
 def test_emulator_batch_equals_planes(params):
@@ -181,8 +182,8 @@ def test_ordered_sums_stay_within_the_gate(params):
     arithmetic too: within K3's gate of the f32 k16 emulator."""
     h, w = 40, 70
     yh = _plane((h + 12, w + 12), 83)
-    _assert_bf16x1_close(forward_y_bf16x1(params, yh, h, w, ordered=True).numpy(),
-                         forward_y_bf16x1(params, yh, h, w).numpy())
+    _assert_bf16x1_close(forward_y_bf16x1(params, yh, h, w, ordered=True).float(),
+                         forward_y_bf16x1(params, yh, h, w), params, yh, h, w)
 
 
 @pytest.mark.parametrize("shape", [(37, 53), (96, 124)])
@@ -193,8 +194,8 @@ def test_emulator_matches_pallas_interpret(params, jparams, shape):
     y = np.random.default_rng(84).uniform(0, 255, shape).astype(np.float32)
     ref = np.asarray(jfused.forward_y(jparams, jnp.asarray(y), interpret=True,
                                       precision=jfused.BF16X1, pack_im2col=True))
-    got = forward_y_bf16x1(params, _halo_plane(y), *shape)
-    _assert_bf16x1_close(got.numpy(), ref)
+    yh = _halo_plane(y)
+    _assert_bf16x1_close(forward_y_bf16x1(params, yh, *shape), ref, params, yh, *shape)
 
 
 def test_emulator_matches_pallas_halo_mode(params, jparams):
@@ -211,8 +212,9 @@ def test_emulator_matches_pallas_halo_mode(params, jparams):
         p["b3"].reshape(1), jnp.asarray([0, 1, 0, 1], jnp.int32),
         th=jfused.BF16_TH, interpret=True, pad_mode="halo",
         precision=jfused.BF16X1, pack_im2col=True)
-    got = forward_y_bf16x1(params, torch.from_numpy(yh), h, w, (0, 1, 0, 1))
-    _assert_bf16x1_close(got.numpy(), np.asarray(ref))
+    yh = torch.from_numpy(yh)
+    _assert_bf16x1_close(forward_y_bf16x1(params, yh, h, w, (0, 1, 0, 1)), ref, params, yh, h,
+                         w, (0, 1, 0, 1))
 
 
 # --- the narrow tile's im2col words ----------------------------------------
