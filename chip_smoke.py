@@ -5,7 +5,11 @@
 Drives the port's paths on the card through its hand-written CUDA kernels
 (SRCNN 9-1-5 at its full width, shipped weights), in phases:
 
-1. require a CUDA device; print the card's name and power limit;
+1. require a CUDA device; print the card's name and power limit; print
+   the directory the shipped weights are read from, which must be the
+   port's own ``models/weights`` (the JAX package is blocked in
+   ``sys.modules`` from the top of this file, so nothing of it can be
+   found or imported in any phase);
 2. build the six kernel libraries from ``libsrcnn_tpu_torch/kernels/csrc``
    (one nvcc each, started together, sm_90a): the main path's three and
    their profiling builds (``-DSRCNN_PROFILING``: K5 and the stage cuts K6
@@ -266,6 +270,13 @@ import time
 
 import numpy as np
 import torch
+
+# the port stands alone: run as a script (phase 15's ranks re-run this file
+# too), this process can neither find nor import the JAX package, so every
+# phase runs on the port's own code and its own copy of the shipped weights.
+# A test that imports this module for its helpers is left as it is.
+if __name__ == "__main__":
+    sys.modules["libsrcnn_tpu"] = None
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDENS = os.path.join(ROOT, "tests", "goldens", "goldens.npz")
@@ -1757,7 +1768,7 @@ def mesh_rank(rank: int, port: int, ck_dir: str) -> int:
 
     family = rank_family_steps(rank, rng, ms)
     check(not take(), "training launched a kernel")
-    check("jax" not in sys.modules and "libsrcnn_tpu" not in sys.modules,
+    check("jax" not in sys.modules and sys.modules.get("libsrcnn_tpu") is None,
           "a rank imported jax or the JAX package")
     torch.distributed.destroy_process_group()
     print("MESH-RANK " + json.dumps({
@@ -2333,6 +2344,12 @@ def main() -> int:
     from libsrcnn_tpu_torch.kernels import _build, ablation, fused_conv
     from libsrcnn_tpu_torch.tools import int8_ablation, kernel_ablation, trace_kernel
     from libsrcnn_tpu_torch.models import srcnn, srcnn_int8
+
+    weights_dir = os.path.dirname(srcnn.weights_path("srcnn_915.npz"))
+    print(f"weights: {weights_dir}")
+    check(weights_dir == os.path.join(os.path.dirname(os.path.abspath(lt.__file__)),
+                                      "models", "weights"),
+          f"the shipped weights are read from {weights_dir}, outside the port")
 
     dev = torch.device("cuda")
     t_start = time.perf_counter()
@@ -2921,7 +2938,7 @@ def main() -> int:
                 launches[name] += n
     print(f"chip_smoke ran in {time.perf_counter() - t_start:.1f} s")
 
-    check("jax" not in sys.modules and "libsrcnn_tpu" not in sys.modules,
+    check("jax" not in sys.modules and sys.modules.get("libsrcnn_tpu") is None,
           "the port imported jax or the JAX package")
     records = []
     sources = {k: (src, rep) for k, (_, src, rep) in KERNELS.items()} | PROFILING_KERNELS

@@ -5,8 +5,8 @@ It runs at LOW resolution and ends with a sub-pixel convolution: 5x5 (f1)
 tanh -> 3x3 (f2) tanh -> 3x3 (scale^2) linear -> pixel shuffle, all
 edge-replicate SAME.  The [0, 255] input is mapped to [-1, 1] first, as a
 multiply and a subtract (``x * (1/127.5) - 1``), and the linear head maps
-back.  One checkpoint per integer factor (x2, x3, x4), read by path from
-``libsrcnn_tpu/models/weights/espcn_x{scale}.npz``.
+back.  One checkpoint per integer factor (x2, x3, x4), the port's own
+``models/weights/espcn_x{scale}.npz``.
 
 No hand kernel runs this family: its convs are
 :func:`..ops.conv.conv_same` at the tier's precision.  Tensors are NCHW /

@@ -6,8 +6,8 @@ learned transposed convolution: feature extraction 5x5 (d) -> shrink 1x1
 (s) -> m mapping 3x3 (s) -> expand 1x1 (d) -> deconv k x k, stride =
 scale, d -> 1.  PReLU activations (per-channel alpha), edge-replicate SAME
 padding on the convs, the [0, 255] domain.  One checkpoint per integer
-factor (x2, x3, x4), read by path from
-``libsrcnn_tpu/models/weights/fsrcnn_x{scale}.npz``.
+factor (x2, x3, x4), the port's own
+``models/weights/fsrcnn_x{scale}.npz``.
 
 The deconv runs as the JAX package runs it: its dense sub-pixel form
 (:func:`_subpixel_plan`), one stride-1 L x L conv emitting the scale^2

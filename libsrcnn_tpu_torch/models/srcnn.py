@@ -24,10 +24,10 @@ rounding them inside the forward is idempotent on weights that are
 already bf16 (the JAX package's bf16 tiers store them so,
 ``libsrcnn_tpu/models/srcnn.py:42-54``).
 
-Weights come from ``libsrcnn_tpu/models/weights/srcnn_915.npz``, read by
-path so that jax is never imported.  Tensors here are OIHW (PyTorch's
-layout); :func:`params_from_jax` converts the JAX package's HWIO pytree
-and :func:`params_to_jax` converts back (a checkpoint moves both ways).
+Weights come from the port's own ``models/weights/srcnn_915.npz``, a
+byte-for-byte copy of the JAX package's shipped file.  Tensors here are
+OIHW (PyTorch's layout); :func:`params_from_jax` converts the JAX
+package's HWIO pytree and :func:`params_to_jax` converts back (a checkpoint moves both ways).
 :func:`init_params` draws the paper's random init for training
 (:mod:`libsrcnn_tpu_torch.train`), which runs :func:`forward_y` with
 ``clamp=False`` under autograd: the hand kernels have no backward.
@@ -37,7 +37,6 @@ from __future__ import annotations
 
 import contextlib
 import functools
-import importlib.util
 import os
 
 import numpy as np
@@ -49,16 +48,10 @@ PARAM_KEYS = ("w1", "b1", "w2", "b2", "w3", "b3")
 
 
 def weights_path(name: str) -> str:
-    """Path of the shipped weights file ``name`` in the JAX package's
-    ``models/weights/``.  ``find_spec`` locates the package without running
-    its ``__init__`` (which imports jax)."""
-    spec = importlib.util.find_spec("libsrcnn_tpu")
-    if spec is None or not spec.submodule_search_locations:
-        raise FileNotFoundError(
-            f"the shipped weights live in the libsrcnn_tpu package "
-            f"(models/weights/{name}), which is not on the path")
-    return os.path.join(spec.submodule_search_locations[0], "models",
-                        "weights", name)
+    """Path of the shipped weights file ``name`` in the port's own
+    ``models/weights/`` (copies of the JAX package's files, shipped as
+    package data).  Loading a missing file raises ``FileNotFoundError``."""
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "weights", name)
 
 
 @functools.lru_cache(maxsize=1)

@@ -21,9 +21,8 @@ package's XLA twin bit for bit, and the CUDA kernel K4
 (``kernels/csrc/fused_srcnn_int8.cu``) equals it bit for bit too.
 
 Tensors are channels-last (``[N, H, W, C]``) so that the per-channel
-scales broadcast as in the JAX package.  The pack is read from
-``libsrcnn_tpu/models/weights/srcnn_915_int8.npz`` by path, so that jax is
-never imported.
+scales broadcast as in the JAX package.  The pack is the port's own
+``models/weights/srcnn_915_int8.npz``, a copy of the JAX package's.
 """
 
 from __future__ import annotations

@@ -13,8 +13,8 @@ stacked weights; here they are a Python loop over the same stack
 
 No hand kernel runs this family: its convs are
 :func:`..ops.conv.conv_same` at the tier's precision.  Tensors are NCHW /
-OIHW.  Shipped weights: ``libsrcnn_tpu/models/weights/vdsr.npz`` (depth
-16, 32 channels), read by path.
+OIHW.  Shipped weights: the port's own ``models/weights/vdsr.npz`` (depth
+16, 32 channels), a copy of the JAX package's.
 """
 
 from __future__ import annotations

@@ -43,6 +43,8 @@ from libsrcnn_tpu_torch.train import (Trainer, load_checkpoint, loss_fn,
                                       make_patch_batch, save_checkpoint)
 
 GOLDENS = os.path.join(os.path.dirname(__file__), "goldens", "goldens.npz")
+# the JAX package's own shipped weights, read by path (the port reads its copy)
+JAX_WEIGHTS = os.path.join(os.path.dirname(jsrcnn.__file__), "weights")
 TOL = 1e-4
 LOSS_RTOL, GRAD_RTOL = 1e-5, 1e-4
 STD_RTOL, STD_SEEDS = 0.05, 8
@@ -356,7 +358,7 @@ def test_shipped_meta_survives_a_round_trip(tmp_path, fname):
     path = str(tmp_path / fname)
     save_checkpoint(path, {**mod.params_from_jax(shipped), **meta}, 3)
     jparams, jspec = jmod.load_params(path=path)
-    _, want_spec = jmod.load_params(path=weights_path(fname))
+    _, want_spec = jmod.load_params(path=os.path.join(JAX_WEIGHTS, fname))
     assert jspec == want_spec
     params, step = load_checkpoint(path, device="cpu")
     assert step == 3 and set(params) == set(shipped) - {"step"}
