@@ -23,6 +23,7 @@ from .models import srcnn, srcnn_int8
 from .models.srcnn import SRCNN915
 from .models.srcnn_generic import SRCNNGeneric
 from .ops.resize import scaled_size
+from .utils.profiling import counts, span
 from . import pipeline
 
 __all__ = [
@@ -57,6 +58,30 @@ def _device(device: str | torch.device) -> torch.device:
     return dev
 
 
+def _upload(array: np.ndarray, dev: torch.device,
+            name: str = "sr.api.upload") -> torch.Tensor:
+    """``array`` copied to ``dev`` under the span ``name``; the bytes of a
+    copy to a card count in ``copy.h2d_bytes``."""
+    with span(name):
+        t = torch.tensor(array, device=dev)
+        if dev.type == "cuda":
+            counts["copy.h2d_bytes"] += array.nbytes
+        return t
+
+
+def _download(*tensors, name: str = "sr.api.download") -> list:
+    """Each tensor of ``tensors`` as a host numpy array (None stays None),
+    under the span ``name``; the bytes of a copy from a card count in
+    ``copy.d2h_bytes``."""
+    with span(name):
+        arrays = []
+        for t in tensors:
+            arrays.append(None if t is None else t.cpu().numpy())
+            if t is not None and t.device.type == "cuda":
+                counts["copy.d2h_bytes"] += t.nbytes
+        return arrays
+
+
 @functools.lru_cache(maxsize=64)
 def _default_params(model: str, tier: str, head: int | None,
                     dev: torch.device) -> dict:
@@ -75,18 +100,21 @@ def _params_on(params, config: SRCNNConfig, dev: torch.device,
     tier takes the quantized pack with its dtypes (int8 weights, f32
     scales); the other tiers take f32 weights, and a family's spec rides
     along under ``"__spec__"``."""
-    if params is None:
-        return _default_params(config.model, config.compute_dtype,
-                               pipeline.head_scale(config, scale), dev)
-    if isinstance(params, (SRCNN915, SRCNNGeneric)):
-        params = params.params()
-    if config.compute_dtype == "int8":
-        params = {k: (v if isinstance(v, torch.Tensor) else torch.tensor(np.asarray(v)))
-                  .to(dev) for k, v in params.items()}
-        srcnn_int8.check_params(params)
-        return params
-    return {k: v if k == "__spec__" else torch.as_tensor(v, dtype=torch.float32).to(dev)
-            for k, v in params.items()}
+    with span("sr.api.params"):
+        if params is None:
+            return _default_params(config.model, config.compute_dtype,
+                                   pipeline.head_scale(config, scale), dev)
+        if isinstance(params, (SRCNN915, SRCNNGeneric)):
+            params = params.params()
+        if config.compute_dtype == "int8":
+            params = {k: (v if isinstance(v, torch.Tensor)
+                          else torch.tensor(np.asarray(v))).to(dev)
+                      for k, v in params.items()}
+            srcnn_int8.check_params(params)
+            return params
+        return {k: v if k == "__spec__"
+                else torch.as_tensor(v, dtype=torch.float32).to(dev)
+                for k, v in params.items()}
 
 
 def upscale(
@@ -131,6 +159,12 @@ def upscale(
     and a fractional remainder pass raises its exact-scale error, as in the
     JAX package.
     """
+    with span("sr.api.upscale"):
+        return _upscale(image, scale, config, params, return_conv_map, device)
+
+
+def _upscale(image, scale, config, params, return_conv_map, device):
+    """:func:`upscale`, inside its span."""
     pipeline.check_supported(config)
     dev = _device(device)
     img = _as_u8_image(image)
@@ -144,10 +178,10 @@ def upscale(
         out, conv = _upscale_flip_ensemble(img, scale, config, params, dev)
         return (out, conv) if want_conv else out
 
-    cur = torch.tensor(img, device=dev)
+    cur = _upload(img, dev)
     if not config.step_scale:
         out, conv = pipeline.run_pass(cur, params, float(scale), config)
-        out, conv = out.cpu().numpy(), conv.cpu().numpy()
+        out, conv = _download(out, conv)
         return (out, conv) if want_conv else out
 
     # --- step-scale: chained x2 passes (`libsrcnn.cpp:980-1061`) ---
@@ -179,8 +213,9 @@ def upscale(
     # the last completed pass's buffer (`:1058-1060`).
     if not final_ran:
         conv = None
-    out = out.cpu().numpy() if out is not None else img.copy()
-    conv = conv.cpu().numpy() if conv is not None else None
+    out, conv = _download(out, conv)
+    if out is None:
+        out = img.copy()
     return (out, conv) if want_conv else out
 
 
@@ -200,9 +235,9 @@ def _upscale_flip_ensemble(img: np.ndarray, scale, config: SRCNNConfig,
     if not base.step_scale:
         from . import serve
 
-        out, conv = serve._ensemble_pass(torch.tensor(img, device=dev)[None],
+        out, conv = serve._ensemble_pass(_upload(img, dev)[None],
                                          params, float(scale), base)
-        return out[0].cpu().numpy(), conv[0].cpu().numpy()
+        return tuple(_download(out[0], conv[0]))
 
     flips = ((False, False), (False, True), (True, False), (True, True))
 

@@ -65,6 +65,7 @@ import functools
 import torch
 
 from ..models import srcnn, srcnn_int8
+from ..utils.profiling import counts
 
 HALO = 6          # 4 (conv1) + 2 (conv3) each side
 
@@ -114,7 +115,8 @@ def pack_params(params: dict) -> torch.Tensor:
     """OIHW params -> the kernels' flat f32 layout (``csrc/srcnn_common.cuh``):
     w1 [81,64] (tap k = 9*dy + dx), b1 [64], w2 [64,32], b2 [32],
     w3 [25,32] (tap k = 5*dy + dx), b3 [1]; 8,129 floats.  The bf16
-    kernels round the weights themselves."""
+    kernels round the weights themselves.  Counts one ``kernels.packs``."""
+    counts["kernels.packs"] += 1
     parts = [
         params["w1"].reshape(64, 81).t(),
         params["b1"],
@@ -132,7 +134,9 @@ def pack_int8_params(qparams: dict) -> torch.Tensor:
     5*dy + dx, :func:`..models.srcnn_int8.w3_taps`), 8,032 bytes; then f32
     s1 t1 [64], s2 t2 [32], d3, b3 and the input scale 127/255 (the f32
     value :func:`..models.srcnn_int8.quantize_input` multiplies by);
-    8,812 bytes, uint8, on the pack's device."""
+    8,812 bytes, uint8, on the pack's device.  Counts one
+    ``kernels.packs``."""
+    counts["kernels.packs"] += 1
     srcnn_int8.check_params(qparams)
     q = [qparams["w1q"], qparams["w2q"], srcnn_int8.w3_taps(qparams["w3q"])]
     dev = qparams["w1q"].device
@@ -299,13 +303,16 @@ _LIBS = {"fused_srcnn": ("srcnn_fused", {"forward": 7}),
 def _lib(name: str = "fused_srcnn") -> ctypes.CDLL:
     """A built kernel library (``fused_srcnn``: K1; ``fused_srcnn_bf16``:
     K2, K3, K3h, K3n; ``fused_srcnn_int8``: K4; their ``_prof`` builds
-    add K5, K6 and K7), with its C signatures declared."""
+    add K5, K6 and K7), with its C signatures declared.  Each load counts
+    one ``kernels.libs_loaded``."""
     from . import _build
 
     if name not in _LIBS:
         raise ValueError(f"no kernel library {name!r}")
     prefix, entries = _LIBS[name]
-    return _declare(_build.load(name), prefix, entries)
+    lib = _build.load(name)
+    counts["kernels.libs_loaded"] += 1
+    return _declare(lib, prefix, entries)
 
 
 def build_all() -> None:

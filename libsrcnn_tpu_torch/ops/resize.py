@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from ..config import FilterType
+from ..utils.profiling import counts
 from .weights_table import contribution_table
 
 
@@ -40,8 +41,10 @@ def _band_tensors(filter_type: FilterType, dst: int, src: int, pad_lo: int,
     the ``dst`` real rows, then copies of the last row's entry -- so the
     padding is bit-identical to replicate-padding the resized plane.  Taps
     whose weight column is all zero are skipped (`resize.py:46-47` of the
-    JAX op), which keeps the accumulation order of the JAX op.
+    JAX op), which keeps the accumulation order of the JAX op.  Each
+    build (a cache miss) counts one ``resize.tables_built``.
     """
+    counts["resize.tables_built"] += 1
     left, weights = contribution_table(filter_type, dst, src)
     window = weights.shape[1]
     # clipped gather indices per tap; weights past the right boundary are
@@ -61,6 +64,9 @@ def _band_tensors(filter_type: FilterType, dst: int, src: int, pad_lo: int,
 
 @functools.lru_cache(maxsize=256)
 def _identity_index(src: int, pad_lo: int, out: int, device: torch.device):
+    """The clamped identity gather of a same-size axis; each build counts
+    one ``resize.tables_built``."""
+    counts["resize.tables_built"] += 1
     idx = np.clip(np.arange(out) - pad_lo, 0, src - 1).astype(np.int64)
     return torch.from_numpy(idx).to(device)
 

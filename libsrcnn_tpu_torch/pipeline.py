@@ -46,6 +46,7 @@ from .kernels import fused_conv
 from .models import espcn, fsrcnn, srcnn, srcnn_generic, srcnn_int8, vdsr
 from .ops import color, resize
 from .utils import checks
+from .utils.profiling import span
 
 #: valid srcnn compute tiers of the JAX package
 SRCNN_TIERS = ("float32", "bfloat16", "bfloat16_fast", "int8")
@@ -181,45 +182,55 @@ def _single_pass(img_u8: torch.Tensor, params: dict, *, dst_h: int, dst_w: int,
     reference's classical policy for every model.
     """
     d = img_u8.shape[-1]
-    planes = color.rgb_to_ycbcr(img_u8)  # [D,...,H,W] f32
+    with span("sr.color.split"):
+        planes = color.rgb_to_ycbcr(img_u8)  # [D,...,H,W] f32
 
     y_filter = FilterType(filter_type)
     c_filter = chroma_filter(y_filter)
-    rest = [resize.resize_plane(planes[c], dst_h, dst_w, c_filter)
-            for c in range(1, d)]
+    rest = []
+    for c in range(1, d):
+        with span("sr.resize"):
+            rest.append(resize.resize_plane(planes[c], dst_h, dst_w, c_filter))
 
+    kernel = use_kernel and model == "srcnn"
     if model in LR_FAMILIES:
-        prec = family_precision(compute_dtype)
-        y_sr = _per_plane(lambda p: FAMILY_MODULES[model].forward_lr(
-            params, p, spec, precision=prec), planes[0])
-    elif model in HR_FAMILIES:
-        prec = family_precision(compute_dtype)
-        y_r = resize.resize_plane(planes[0], dst_h, dst_w, y_filter)
-        y_sr = _per_plane(lambda p: FAMILY_MODULES[model].forward_hr(
-            params, p, spec, precision=prec), y_r)
-    elif use_kernel:
-        halo = fused_conv.HALO
-        y_r = resize.resize_plane_padded(planes[0], dst_h, dst_w, y_filter,
-                                         halo, dst_h + 2 * halo,
-                                         dst_w + 2 * halo)
-        if compute_dtype == "int8":
+        y_r = planes[0]
+    else:
+        with span("sr.resize"):
+            if kernel:
+                halo = fused_conv.HALO
+                y_r = resize.resize_plane_padded(planes[0], dst_h, dst_w, y_filter,
+                                                 halo, dst_h + 2 * halo,
+                                                 dst_w + 2 * halo)
+            else:
+                y_r = resize.resize_plane(planes[0], dst_h, dst_w, y_filter)
+
+    with span("sr.conv_stack"):
+        if model in LR_FAMILIES:
+            prec = family_precision(compute_dtype)
+            y_sr = _per_plane(lambda p: FAMILY_MODULES[model].forward_lr(
+                params, p, spec, precision=prec), y_r)
+        elif model in HR_FAMILIES:
+            prec = family_precision(compute_dtype)
+            y_sr = _per_plane(lambda p: FAMILY_MODULES[model].forward_hr(
+                params, p, spec, precision=prec), y_r)
+        elif kernel and compute_dtype == "int8":
             y_sr = fused_conv.forward_y_int8(params, y_r, dst_h, dst_w)
-        else:
+        elif kernel:
             y_sr = fused_conv.forward_y(params, y_r, dst_h, dst_w,
                                         precision=KERNEL_PRECISION[compute_dtype])
-    else:
-        y_r = resize.resize_plane(planes[0], dst_h, dst_w, y_filter)
-        if compute_dtype == "int8":
+        elif compute_dtype == "int8":
             y_sr = _per_plane(lambda p: srcnn_int8.forward_y(params, p), y_r)
         else:
             y_sr = _per_plane(lambda p: srcnn.forward_y(params, p, compute_dtype), y_r)
 
     if checks.debug_checks_enabled():
         checks.require_finite(y_sr, "the conv stack's Y plane")
-    out_u8 = color.ycbcr_to_rgb(torch.stack([y_sr, *rest], dim=0))
-    # the model's output is already clamped to [0,255]; truncating u8 cast
-    # (`libsrcnn.cpp:897-901`)
-    conv_u8 = torch.floor(y_sr).to(torch.uint8)
+    with span("sr.color.merge"):
+        out_u8 = color.ycbcr_to_rgb(torch.stack([y_sr, *rest], dim=0))
+        # the model's output is already clamped to [0,255]; truncating u8
+        # cast (`libsrcnn.cpp:897-901`)
+        conv_u8 = torch.floor(y_sr).to(torch.uint8)
     return out_u8, conv_u8
 
 
@@ -230,20 +241,23 @@ def run_pass(img_u8: torch.Tensor, params: dict, multiply: float,
     (out_u8, conv_u8) tensors on the image's device.  ``params`` are
     ``cfg.model``'s (a family's with or without ``"__spec__"``).
     ``cfg.self_ensemble`` is the caller's business (``api`` / ``serve``)."""
-    check_supported(cfg)
-    if img_u8.dim() not in (3, 4):
-        raise ValueError(f"expected [H,W,D] or [N,H,W,D], got {list(img_u8.shape)}")
-    h, w, _ = img_u8.shape[-3:]
-    dst_w, dst_h = resize.scaled_size(w, h, multiply)
-    if dst_w <= 0 or dst_h <= 0:
-        raise ValueError(f"bad scale {multiply} for {w}x{h}")
-    params, spec = prepare_model_params(cfg, params, h, w, dst_h, dst_w, multiply)
-    return _single_pass(img_u8, params, dst_h=dst_h, dst_w=dst_w,
-                        filter_type=cfg.filter,
-                        use_kernel=resolve_kernel(cfg.use_kernel,
-                                                  img_u8.device),
-                        compute_dtype=cfg.compute_dtype, model=cfg.model,
-                        spec=spec)
+    with span("sr.pipeline.pass"):
+        check_supported(cfg)
+        if img_u8.dim() not in (3, 4):
+            raise ValueError(f"expected [H,W,D] or [N,H,W,D], "
+                             f"got {list(img_u8.shape)}")
+        h, w, _ = img_u8.shape[-3:]
+        dst_w, dst_h = resize.scaled_size(w, h, multiply)
+        if dst_w <= 0 or dst_h <= 0:
+            raise ValueError(f"bad scale {multiply} for {w}x{h}")
+        params, spec = prepare_model_params(cfg, params, h, w, dst_h, dst_w,
+                                            multiply)
+        return _single_pass(img_u8, params, dst_h=dst_h, dst_w=dst_w,
+                            filter_type=cfg.filter,
+                            use_kernel=resolve_kernel(cfg.use_kernel,
+                                                      img_u8.device),
+                            compute_dtype=cfg.compute_dtype, model=cfg.model,
+                            spec=spec)
 
 
 def run_intermediates(img_u8: torch.Tensor, params: dict, multiply: float,

@@ -74,12 +74,12 @@ def upscale_frames(frames: np.ndarray, scale: float = 2.0,
     dev = api._device(device)
     clip = _as_u8_clip(frames)
     params = api._params_on(params, config, dev, scale)
-    x = torch.tensor(clip, device=dev)
+    x = api._upload(clip, dev, "sr.serve.upload")
     if config.self_ensemble:
         out, _ = _ensemble_pass(x, params, float(scale), config)
     else:
         out, _ = pipeline.run_pass(x, params, float(scale), config)
-    return out.cpu().numpy()
+    return api._download(out, name="sr.serve.download")[0]
 
 
 def _ensemble_pass(frames: torch.Tensor, params: dict, scale: float,
@@ -143,7 +143,8 @@ class VideoUpscaler:
         last_err = None
         for attempt in range(self.max_retries + 1):
             try:
-                img = torch.tensor(api._as_u8_image(frame), device=self.device)
+                img = api._upload(api._as_u8_image(frame), self.device,
+                                  "sr.serve.upload")
                 if self.config.self_ensemble:
                     out = _ensemble_pass(img[None], self.params, self.scale,
                                          self.config)[0][0]
@@ -154,7 +155,9 @@ class VideoUpscaler:
                 # surface only when the result is read are retried too --
                 # the slow path; stream() keeps the fast path asynchronous
                 # and comes here only on error
-                return out.cpu().numpy() if sync else out
+                if sync:
+                    return api._download(out, name="sr.serve.download")[0]
+                return out
             except torch.AcceleratorError as e:
                 last_err = e
                 if attempt < self.max_retries:
@@ -184,7 +187,7 @@ class VideoUpscaler:
         asynchronous, so a failed execution raises HERE, not in _run_one --
         re-run the frame synchronously through the retry loop then."""
         try:
-            return result.cpu().numpy()
+            return api._download(result, name="sr.serve.download")[0]
         except torch.AcceleratorError:
             return self._run_one(frame, sync=True)
 

@@ -2,17 +2,50 @@
 
 * :func:`trace` -- a ``torch.profiler`` run around a block, written as a
   Chrome trace file (view it in Perfetto or ``chrome://tracing``);
-* :func:`sync` -- wait for the work queued on every CUDA device that the
-  given tensors live on;
+* :func:`span` -- a named range of the program (:data:`SPANS`) in any
+  profiler run, and next to free without one;
+* :data:`counts` -- the program's counters of copies and rebuilds, always
+  on; :func:`counts_snapshot` reads them with the kernel launches;
 * :class:`StageTimer` -- per-stage times: CUDA events on a CUDA device,
   the host clock on the CPU;
 * :func:`median_ms` -- the median time of single calls, by StageTimer;
-* :func:`card` -- the card's name and power limit, to print beside times;
-* :func:`flops_estimate` -- the FLOPs of one SRCNN 9-1-5 pass.
+* :func:`card` -- the card's name and power limit, to print beside times.
+
+The spans, in the order of a still request; a pass's spans nest in
+``sr.pipeline.pass``, and a still's in ``sr.api.upscale``:
+
+* ``sr.api.upscale``: one still request, the whole of ``api.upscale``;
+* ``sr.api.params``: ``api._params_on``, the caller's parameters made
+  ready on the device;
+* ``sr.api.upload``, ``sr.api.download``: ``api``'s host <-> device
+  copies (the still; the output and the conv map);
+* ``sr.pipeline.pass``: ``pipeline.run_pass``, one pass of a frame or a
+  clip;
+* ``sr.color.split``: u8 RGB(A) -> planar f32 YCbCr;
+* ``sr.resize``: one plane's resize (each chroma plane, the Y plane with
+  its halo);
+* ``sr.conv_stack``: the model on the Y plane, its weight pack included;
+* ``sr.color.merge``: planar -> u8 RGB(A), and the conv map's u8 cast;
+* ``sr.serve.upload``, ``sr.serve.download``: ``serve``'s host <-> device
+  copies.
+
+They are ``record_function`` ranges, on the profiler's clock with the
+device's activity, so a kernel can be put down to the span that launched
+it.  The counters (:data:`counts`):
+
+* ``copy.h2d_bytes``, ``copy.d2h_bytes``: bytes of each host <-> card
+  copy made under an upload or download span;
+* ``kernels.packs``: weight packs for a fused kernel
+  (``fused_conv.pack_params``, ``pack_int8_params``);
+* ``resize.tables_built``: resize index / weight tables built (cache
+  misses of ``ops.resize``);
+* ``kernels.libs_loaded``: kernel libraries loaded (``fused_conv._lib``
+  misses).
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import os
 import subprocess
@@ -20,6 +53,36 @@ import time
 
 import numpy as np
 import torch
+
+#: every span of the program, in the order of a still request
+SPANS = ("sr.api.upscale", "sr.api.params", "sr.api.upload", "sr.pipeline.pass",
+         "sr.color.split", "sr.resize", "sr.conv_stack", "sr.color.merge",
+         "sr.api.download", "sr.serve.upload", "sr.serve.download")
+#: what :func:`span` returns while no profiler runs
+NO_SPAN = contextlib.nullcontext()
+#: the program's counters (see the module's notes); a plain add at each
+#: site, with no lock
+counts = collections.Counter()
+
+
+def span(name: str):
+    """``with span("sr.resize"): ...``: a ``record_function`` range named
+    ``name`` while a profiler runs, else :data:`NO_SPAN` (a check of one
+    flag; an idle ``record_function`` costs twenty times more)."""
+    if torch._C._autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return NO_SPAN
+
+
+def counts_snapshot() -> collections.Counter:
+    """A copy of :data:`counts`, with the fused kernels' launches
+    (``fused_conv.launches_by``) as ``kernels.launch.<kernel>``."""
+    from ..kernels import fused_conv
+
+    snap = collections.Counter(counts)
+    for kernel, n in fused_conv.launches_by.items():
+        snap[f"kernels.launch.{kernel}"] = n
+    return snap
 
 
 @contextlib.contextmanager
@@ -39,26 +102,6 @@ def trace(logdir: str):
         if torch.cuda.is_available():
             torch.cuda.synchronize()
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
-
-
-def _tensors(tree):
-    if isinstance(tree, torch.Tensor):
-        yield tree
-    elif isinstance(tree, dict):
-        for v in tree.values():
-            yield from _tensors(v)
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from _tensors(v)
-
-
-def sync(tensors) -> None:
-    """Wait until each CUDA device that a tensor of ``tensors`` (a tensor,
-    or lists, tuples and dicts of them) lives on has finished its queued
-    work.  CUDA calls return before the device is done, so a host clock
-    read without this measures the enqueue.  CPU tensors need nothing."""
-    for dev in {t.device for t in _tensors(tensors) if t.device.type == "cuda"}:
-        torch.cuda.synchronize(dev)
 
 
 class StageTimer:
@@ -142,10 +185,3 @@ def median_ms(fn, device: torch.device | str = "cuda", runs: int = 10,
         with timer.stage("call"):
             fn()
     return float(np.median(timer.times["call"]))
-
-
-def flops_estimate(out_h: int, out_w: int) -> int:
-    """FLOPs of one SRCNN 9-1-5 pass at the given output size (the convs
-    only; resize and color are O(pixels))."""
-    per_pixel = 2 * (81 * 64 + 64 * 32 + 25 * 32)
-    return out_h * out_w * per_pixel

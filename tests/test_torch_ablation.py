@@ -1,5 +1,5 @@
 """The stage cuts (``kernels/ablation``: K6 cuts of K1-K3, K7 cuts of K4)
-and ``utils/profiling`` on the CPU vs the JAX package.
+vs the JAX package, and ``utils/profiling`` on the CPU.
 
 The JAX ablation kernels cannot run here (their ``pallas_call`` takes no
 ``interpret``), so each cut's plain version is compared with values built
@@ -29,7 +29,6 @@ import jax.numpy as jnp
 from libsrcnn_tpu.kernels import fused_conv as jfused
 from libsrcnn_tpu.models import srcnn as jsrcnn
 from libsrcnn_tpu.models import srcnn_int8 as jint8
-from libsrcnn_tpu.utils import profiling as jprofiling
 from libsrcnn_tpu_torch.kernels import ablation, fused_conv
 from libsrcnn_tpu_torch.models import srcnn, srcnn_int8
 from libsrcnn_tpu_torch.tools import int8_ablation, kernel_ablation, trace_kernel
@@ -241,16 +240,10 @@ def test_stage_timer_on_cpu_uses_the_host_clock():
 
 def test_sync_and_trace_on_cpu(tmp_path):
     x = torch.ones(8)
-    profiling.sync([x, {"y": (x, x)}])          # nothing on a CUDA device
     with profiling.trace(str(tmp_path / "tb")) as prof:
         (x * 2).sum()
     assert (tmp_path / "tb" / "trace.json").stat().st_size > 0
     assert any("mul" in e.key for e in prof.key_averages())
-
-
-@pytest.mark.parametrize("shape", [(2048, 2048), (7, 13)])
-def test_flops_estimate_matches_jax(shape):
-    assert profiling.flops_estimate(*shape) == jprofiling.flops_estimate(*shape)
 
 
 def test_profiling_tools_need_a_card():
