@@ -10,9 +10,10 @@ Drives the port's paths on the card through its hand-written CUDA kernels
    port's own ``models/weights`` (the JAX package is blocked in
    ``sys.modules`` from the top of this file, so nothing of it can be
    found or imported in any phase);
-2. build the six kernel libraries from ``libsrcnn_tpu_torch/kernels/csrc``
-   (one nvcc each, started together, sm_90a): the main path's three and
-   their profiling builds (``-DSRCNN_PROFILING``: K5 and the stage cuts K6
+2. build the seven kernel libraries from ``libsrcnn_tpu_torch/kernels/csrc``
+   (one nvcc each, started together, sm_90a): the main path's four (the
+   conv stack's three and the resize's) and the conv stack's profiling
+   builds (``-DSRCNN_PROFILING``: K5 and the stage cuts K6
    / K7); print each kernel instance's ptxas line (registers, spills) under
    its kernel's name; dump each cut instance's SASS (``cuobjdump``) and
    check that its count of HMMA / IMMA / HGMMA / IGMMA / FFMA instructions
@@ -38,10 +39,16 @@ Drives the port's paths on the card through its hand-written CUDA kernels
    its plain version: K7 (the cuts of K4) bit for bit, K6 (of K1, K2, K3)
    at its kernel's gate after scaling the error by 255 / max(255, max
    |value|) (K3's cuts: each stage's flip bound, scaled alike); each
-   ``full`` cut equal to the production kernel bit for bit;
+   ``full`` cut equal to the production kernel bit for bit; then R, the
+   resize's band-resample kernel, at one 8-frame 1080p clip's shapes x2
+   (Y with its 6 px halo, 8x1080x1920 -> 8x2172x3852, and a chroma plane,
+   -> 8x2160x3840): ``resize_plane_padded`` and ``resize_plane`` on the
+   card equal to the same calls on the CPU bit for bit, and timed beside
+   the plain version's torch taps on the card and its HBM-bytes bound;
 4. the main path, exact tier: ``upscale(..., device="cuda")`` on four
    seeded 1024x1024 RGB frames at x2, the 29 reference-binary golden
    configs and one ``process_srcnn`` call -- K1 launched once per pass,
+   R twice per plane of a pass (six for an RGB frame),
    each frame within 1 u8 LSB of the plain path on the card, each golden
    within 1 u8 LSB of the reference binary;
 5. the throughput tiers on the same path: the four frames and the tier
@@ -253,7 +260,9 @@ Drives the port's paths on the card through its hand-written CUDA kernels
     srcnn row's PSNR equal to ``upscale``'s on the protocol's LR input.
     The phase's launches are added to the kernels record.
 
-The second-to-last line is a JSON record of the kernels; the last line is
+The second-to-last line is a JSON record of the kernels (R's with its ms,
+plain ms and bytes bound per plane of phase 3's clip, and its launches
+from phase 3 on); the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
 without a CUDA device the script exits non-zero before printing a result.
 """
@@ -317,6 +326,7 @@ BEFORE_WGMMA_MS = {"K2": 0.984, "K4": 0.755, "K3": 0.606, "K3n": 0.696, "K5": 0.
 # run so that the record compares across versions: K1's conv2 and K4's taps
 # (every cut's time is printed in phase 9)
 RECORD_CUT = {"K6": ("K1", "conv2"), "K7": ("K4", "taps")}
+CLIP_FRAMES = 8      # the frames of the clip whose shapes R is held at
 INT8_PSNR = 38.0     # butterfly x2 against the exact tier (tests/test_int8.py)
 # H100 SXM dense peak rates at 700 W (NVIDIA's data sheet)
 PEAK_BF16_FLOPS = 989e12
@@ -2326,6 +2336,70 @@ def recipes_phase(card: str, z) -> dict:
     return driven
 
 
+def resample_phase(dev) -> dict:
+    """Phase 3's last part: R, the resize's band-resample kernel, at one
+    clip's shapes x2 (Y padded by the halo, and a chroma plane): the card's
+    ``resize_plane_padded`` / ``resize_plane`` equal to the same calls on
+    the CPU bit for bit, then timed beside the plain version's torch taps
+    on the card and the bytes bound.  Returns the kernels record's fields
+    of R."""
+    from libsrcnn_tpu_torch import SRCNNConfig, pipeline
+    from libsrcnn_tpu_torch.kernels import fused_conv, resample
+    from libsrcnn_tpu_torch.ops import resize
+
+    t_phase = time.perf_counter()
+    y_ft = SRCNNConfig().filter
+    c_ft = pipeline.chroma_filter(y_ft)
+    n, h, w, halo = CLIP_FRAMES, 1080, 1920, fused_conv.HALO
+    # (filter, pad, out_h, out_w) of each plane: Y feeds the conv stack its
+    # halo plane, a chroma plane is resized alone
+    planes = {"y": (y_ft, halo, 2 * h + 2 * halo, 2 * w + 2 * halo),
+              "chroma": (c_ft, 0, 2 * h, 2 * w)}
+    src = torch.rand(n, h, w, generator=torch.Generator().manual_seed(23)) * 255
+    src_card = src.to(dev)
+    launches0 = resample.launches
+    ms, plain_ms, bound_ms = {}, {}, {}
+    for plane, (ft, pad, out_h, out_w) in planes.items():
+        if pad:
+            def call(p, ft=ft, pad=pad, out_h=out_h, out_w=out_w):
+                return resize.resize_plane_padded(p, 2 * h, 2 * w, ft, pad, out_h, out_w)
+        else:
+            def call(p, ft=ft):
+                return resize.resize_plane(p, 2 * h, 2 * w, ft)
+        got, want = call(src_card), call(src)
+        check(got.shape == want.shape
+              and torch.equal(got.cpu().view(torch.int32), want.view(torch.int32)),
+              f"R, {plane}: the card's {list(got.shape)} differs from the CPU's "
+              f"{list(want.shape)} in its bits")
+        # the plain version's torch taps on the card, in the same pass order
+        # (vertical first: the width grows)
+        rows = resize._band_stack(ft, 2 * h, h, pad, out_h, dev)
+        cols = resize._band_stack(ft, 2 * w, w, pad, out_w, dev)
+
+        def plain(p, rows=rows, cols=cols):
+            return resize._plain_axis(resize._plain_axis(p, *rows, 0), *cols, 1)
+
+        check(torch.equal(plain(src_card), got),
+              f"R, {plane}: the torch taps on the card differ from the kernel")
+        t = timed({"kernel": lambda call=call: call(src_card),
+                   "plain": lambda plain=plain: plain(src_card)}, runs=15)
+        ms[plane], plain_ms[plane] = t["kernel"], t["plain"]
+        # each axis reads its input and writes its output once, 4 bytes a value
+        moved = 4 * (src.numel() + 2 * n * out_h * w + got.numel())
+        bound_ms[plane] = 1e3 * moved / PEAK_BYTES
+        print(f"R, {plane}: {list(src.shape)} -> {list(got.shape)} equal to the CPU "
+              f"bit for bit; {ms[plane]:.3f} ms against {plain_ms[plane]:.3f} ms for "
+              f"the torch taps on the card; bound {bound_ms[plane]:.3f} ms "
+              f"({moved / 1e6:.0f} MB at {PEAK_BYTES / 1e12:.2f} TB/s, "
+              f"{100 * bound_ms[plane] / ms[plane]:.1f}% of it)")
+        del got, want
+    torch.cuda.synchronize()
+    launches = resample.launches - launches0
+    print(f"R in {time.perf_counter() - t_phase:.1f} s: {launches} launches")
+    return {"launches": launches, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "shape": f"{n}x{h}x{w} x2: Y padded by {halo}, a chroma plane"}
+
+
 def main() -> int:
     # --- 1. the card ------------------------------------------------------
     if not torch.cuda.is_available():
@@ -2341,7 +2415,8 @@ def main() -> int:
     import libsrcnn_tpu_torch as lt
     from libsrcnn_tpu_torch import pipeline
     from libsrcnn_tpu_torch.eval import psnr, ssim
-    from libsrcnn_tpu_torch.kernels import _build, ablation, fused_conv
+    from libsrcnn_tpu_torch.kernels import _build, ablation, fused_conv, resample
+    from libsrcnn_tpu_torch.ops import resize
     from libsrcnn_tpu_torch.tools import int8_ablation, kernel_ablation, trace_kernel
     from libsrcnn_tpu_torch.models import srcnn, srcnn_int8
 
@@ -2358,7 +2433,7 @@ def main() -> int:
     t = time.perf_counter()
     fused_conv.build_all()
     print(f"build: fused_srcnn.cu + fused_srcnn_bf16.cu + fused_srcnn_int8.cu, "
-          f"each also with {' '.join(_build.PROFILING_FLAGS)}, in "
+          f"each also with {' '.join(_build.PROFILING_FLAGS)}, and resample.cu, in "
           f"{time.perf_counter() - t:.1f} s ({' '.join(_build.NVCC_FLAGS)})")
     for name, log in _build.build_logs.items():
         for fn, line in ptxas_lines(log):
@@ -2502,30 +2577,42 @@ def main() -> int:
           f"within their flip bounds at every pixel of every case, worst gap / bound "
           f"{k3_worst['ratio']:.4g}, {k3_worst['over']} pixels over")
 
+    r_record = resample_phase(dev)
+    # R's launches from here on, summed over every reset of the counters
+    launches = {"R": 0}
+
     # --- 4. the main path, exact tier ---------------------------------------
-    passes = 0
+    passes = resamples = 0
     run_pass = pipeline.run_pass
 
-    def counted_run_pass(*args, **kwargs):
-        nonlocal passes
+    def counted_run_pass(img_u8, params, multiply, cfg):
+        # R's launches a pass makes: two for Y (padded), one per resized
+        # axis of each other plane
+        nonlocal passes, resamples
         passes += 1
-        return run_pass(*args, **kwargs)
+        h, w, d = img_u8.shape[-3:]
+        dst_w, dst_h = resize.scaled_size(w, h, multiply)
+        resamples += 2 + (d - 1) * ((dst_h != h) + (dst_w != w))
+        return run_pass(img_u8, params, multiply, cfg)
 
     def reset_counts():
-        nonlocal passes
-        passes = 0
+        nonlocal passes, resamples
+        passes = resamples = 0
         fused_conv.launches = 0
         for k in fused_conv.launches_by:
             fused_conv.launches_by[k] = 0
+        launches["R"] += resample.launches
+        resample.launches = 0
 
     frames = [frame(100 + i, 1024, 1024) for i in range(4)]
     z = np.load(GOLDENS)
-    launches = {}
     pipeline.run_pass = counted_run_pass
     try:
         reset_counts()
         t = time.perf_counter()
         frame_outs = [lt.upscale(f, 2.0, device="cuda") for f in frames]
+        check(passes == 4 and resample.launches == resamples == 6 * passes,
+              f"{resample.launches} R launches for {passes} RGB passes")
         golden_outs = []
         for meta in z["meta"]:
             key, name, mult, filt, step, _ = str(meta).split(",")
@@ -2542,18 +2629,20 @@ def main() -> int:
         launches["K1"] = fused_conv.launches_by["K1"]
         check(fused_conv.launches == passes == launches["K1"],
               f"{dict(fused_conv.launches_by)} launches for {passes} passes")
+        check(resample.launches == resamples,
+              f"{resample.launches} R launches where {passes} passes make {resamples}")
     finally:
         pipeline.run_pass = run_pass
     print(f"exact tier: 4 frames + {len(golden_outs)} goldens + 1 "
           f"process_srcnn in {served_s:.2f} s: {passes} passes, "
-          f"{launches['K1']} K1 launches")
+          f"{launches['K1']} K1 launches, {resamples} R launches")
 
     for i, (f, out) in enumerate(zip(frames, frame_outs)):
         check(out.shape == (2048, 2048, 3) and out.dtype == np.uint8,
               f"frame {i}: output {out.shape} {out.dtype}")
         plain = lt.upscale(f, 2.0, lt.SRCNNConfig(use_kernel=False), device="cuda")
         d = lsb(out, plain)
-        print(f"frame {i}: 1024^2 -> 2048^2, kernel vs plain path on the card "
+        print(f"frame {i}: 1024^2 -> 2048^2, kernel vs plain conv stack on the card "
               f"max {d} LSB, {100 * float((out != plain).mean()):.4f}% differ")
         check(d <= 1, f"frame {i}: kernel path {d} LSB off the plain path")
     check(rc == 0 and np.array_equal(shim_out, frame_outs[0].ravel()),
@@ -2964,6 +3053,16 @@ def main() -> int:
                                   for k, rows in tables.items()
                                   if (k == "K4") == (name == "K7")}
         records.append(record)
+    launches["R"] += resample.launches
+    # R from phase 3: one clip's Y (padded) and one chroma plane; equal to
+    # the CPU bit for bit, and no library computes these tables
+    records.append({
+        "name": "R", "route": "cuda",
+        "source": "libsrcnn_tpu_torch/kernels/csrc/resample.cu",
+        "replaces": "none: the JAX resize is XLA (libsrcnn_tpu/ops/resize.py)",
+        "max_abs_err": 0.0, "bound_by": "bytes", "library_ms": None,
+        **r_record, "launches": launches["R"],
+    })
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,8 +7,10 @@ The build runs at first use, on a machine with ``nvcc``, into
 carries a hash of every source under ``csrc/`` (the ``.cu`` files and the
 ``.cuh`` headers they share) and of the flags, so an edited source or
 header rebuilds and a stale library is never loaded.  :func:`build` starts
-one nvcc per missing library, all at once.  Nothing here runs at import
-time.
+one nvcc per missing library, all at once; :func:`load` builds every
+missing main-path library in that one round, so a process's first kernel
+builds all the others it may call (the resize's, the conv stack's)
+without a serial nvcc.  Nothing here runs at import time.
 
 A library named ``<name>_prof`` is ``csrc/<name>.cu`` built a second time
 with ``-DSRCNN_PROFILING``: the kernel-profiling path (K5 and the stage
@@ -77,6 +79,13 @@ def sources() -> list[str]:
                   glob.glob(os.path.join(CSRC, "*.cuh")))
 
 
+def main_libraries() -> list[str]:
+    """The main path's libraries: one per ``csrc/*.cu``, none of the
+    profiling ones."""
+    return sorted(os.path.splitext(os.path.basename(src))[0]
+                  for src in glob.glob(os.path.join(CSRC, "*.cu")))
+
+
 def library_path(name: str) -> str:
     digest = hashlib.sha256(" ".join(_source_and_flags(name)[1]).encode())
     digest.update(name.encode())
@@ -91,7 +100,7 @@ def build(*names: str) -> None:
     """Build the library of each name whose library is missing (see the
     module's docstring), one nvcc process per library, all started
     together."""
-    todo = [n for n in names if not os.path.exists(library_path(n))]
+    todo = [n for n in dict.fromkeys(names) if not os.path.exists(library_path(n))]
     if not todo:
         return
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -128,6 +137,7 @@ def build(*names: str) -> None:
 
 @functools.lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
-    """Build library ``name`` if it is missing, then load it."""
-    build(name)
+    """Build library ``name`` and every main-path library that is missing
+    (:func:`main_libraries`) in one round, then load ``name``."""
+    build(name, *main_libraries())
     return ctypes.CDLL(library_path(name))

@@ -316,11 +316,11 @@ def _lib(name: str = "fused_srcnn") -> ctypes.CDLL:
 
 
 def build_all() -> None:
-    """Build every kernel library of this module, the profiling path's
-    included (one nvcc each, all at once), and load them."""
+    """Build every kernel library, the profiling path's included (one
+    nvcc each, all at once), and load this module's."""
     from . import _build
 
-    _build.build(*_LIBS)
+    _build.build(*_LIBS, *_build.main_libraries())
     for name in _LIBS:
         _lib(name)
 

@@ -15,9 +15,15 @@ same-size half-buffer copy bug, `frawscale.cpp:185-193`, is deliberately
 not reproduced).
 
 The index and weight tensors of one (filter, dst, src, pad, out, device)
-are built once and cached; they are a few KB per axis.  Planes may carry
-leading batch dimensions (``[..., H, W]``): every op is elementwise along
-them, so a batch resizes bit for bit like its planes one at a time.
+are built once and cached as ``[K, out]`` (:func:`_band_stack`); they are
+a few KB per axis.  Planes may carry leading batch dimensions
+(``[..., H, W]``): every op is elementwise along them, so a batch resizes
+bit for bit like its planes one at a time.
+
+That is the plain version, which a CPU tensor takes.  A CUDA tensor takes
+the band-resample kernel (:mod:`..kernels.resample`): one launch per axis
+applies the same taps in the same order with the same roundings, from the
+same tables, so the card's result is the plain version's bit for bit.
 """
 
 from __future__ import annotations
@@ -28,23 +34,22 @@ import numpy as np
 import torch
 
 from ..config import FilterType
+from ..kernels import resample
 from ..utils.profiling import counts
 from .weights_table import contribution_table
 
 
-@functools.lru_cache(maxsize=256)
-def _band_tensors(filter_type: FilterType, dst: int, src: int, pad_lo: int,
-                  out: int, device: torch.device):
-    """Per-tap (index [out] int64, weight [out] f32) pairs for one axis.
+def _band_table(filter_type: FilterType, dst: int, src: int, pad_lo: int,
+                out: int) -> tuple[np.ndarray, np.ndarray]:
+    """One axis's tables as host arrays: clipped source indices [out, K]
+    int64 and weights [out, K] f32, K the taps kept.
 
     ``out`` rows: ``pad_lo`` copies of the first output row's table entry,
     the ``dst`` real rows, then copies of the last row's entry -- so the
     padding is bit-identical to replicate-padding the resized plane.  Taps
-    whose weight column is all zero are skipped (`resize.py:46-47` of the
-    JAX op), which keeps the accumulation order of the JAX op.  Each
-    build (a cache miss) counts one ``resize.tables_built``.
+    whose weight column is all zero are dropped (`resize.py:46-47` of the
+    JAX op), which keeps the accumulation order of the JAX op.
     """
-    counts["resize.tables_built"] += 1
     left, weights = contribution_table(filter_type, dst, src)
     window = weights.shape[1]
     # clipped gather indices per tap; weights past the right boundary are
@@ -56,19 +61,25 @@ def _band_tensors(filter_type: FilterType, dst: int, src: int, pad_lo: int,
                           np.repeat(idx[-1:], pad_hi, 0)])
     w = np.concatenate([np.repeat(w[:1], pad_lo, 0), w,
                         np.repeat(w[-1:], pad_hi, 0)])
-    return tuple(
-        (torch.from_numpy(np.ascontiguousarray(idx[:, k], np.int64)).to(device),
-         torch.from_numpy(np.ascontiguousarray(w[:, k])).to(device))
-        for k in range(window) if np.any(w[:, k]))
+    keep = [k for k in range(window) if np.any(w[:, k])]
+    return idx[:, keep].astype(np.int64), w[:, keep]
 
 
 @functools.lru_cache(maxsize=256)
-def _identity_index(src: int, pad_lo: int, out: int, device: torch.device):
-    """The clamped identity gather of a same-size axis; each build counts
-    one ``resize.tables_built``."""
+def _band_stack(filter_type: FilterType | None, dst: int, src: int, pad_lo: int,
+                out: int, device: torch.device):
+    """One axis's tables on ``device``, as both versions read them: index
+    [K, out] int32 and weight [K, out] f32, tap k of :func:`_band_table`
+    in row k.  ``filter_type`` None is a same-size axis: the clamped
+    identity gather as index [1, out] and weight None (a copy).  Each
+    build (a cache miss) counts one ``resize.tables_built``."""
     counts["resize.tables_built"] += 1
-    idx = np.clip(np.arange(out) - pad_lo, 0, src - 1).astype(np.int64)
-    return torch.from_numpy(idx).to(device)
+    if filter_type is None:
+        idx = np.clip(np.arange(out) - pad_lo, 0, src - 1)[None]
+        return torch.from_numpy(idx.astype(np.int32)).to(device), None
+    idx, w = _band_table(filter_type, dst, src, pad_lo, out)
+    return (torch.from_numpy(np.ascontiguousarray(idx.T, np.int32)).to(device),
+            torch.from_numpy(np.ascontiguousarray(w.T)).to(device))
 
 
 def _resize_axis(plane: torch.Tensor, dst: int, filter_type: FilterType,
@@ -83,19 +94,31 @@ def _resize_axis(plane: torch.Tensor, dst: int, filter_type: FilterType,
         if dst == src:
             return plane
         out = dst
-    if dst == src:
+    ft = None if dst == src else FilterType(filter_type)
+    idx, w = _band_stack(ft, dst, src, pad_lo, out, plane.device)
+    if plane.device.type == "cuda":
+        return resample.resample(plane, idx, w, axis)
+    return _plain_axis(plane, idx, w, axis)
+
+
+def _plain_axis(plane: torch.Tensor, idx: torch.Tensor, w: torch.Tensor | None,
+                axis: int) -> torch.Tensor:
+    """The plain version of one axis on the tables of :func:`_band_stack`:
+    one ``index_select``, multiply and add per tap, in ascending tap order,
+    the sum started from the first term.  Any device; ``_resize_axis``
+    sends it a CPU plane."""
+    dim = axis - 2
+    if w is None:
         # same-size axis: identity gather with clamped indices
-        return plane.index_select(dim, _identity_index(src, pad_lo, out,
-                                                       plane.device))
+        return plane.index_select(dim, idx[0])
     acc = None
-    for idx, wk in _band_tensors(FilterType(filter_type), dst, src, pad_lo,
-                                 out, plane.device):
-        wk = wk[:, None] if axis == 0 else wk[None, :]
-        term = plane.index_select(dim, idx) * wk
+    for k in range(idx.shape[0]):
+        wk = w[k][:, None] if axis == 0 else w[k][None, :]
+        term = plane.index_select(dim, idx[k]) * wk
         acc = term if acc is None else acc + term
     if acc is None:  # degenerate: all-zero table (cannot happen in practice)
         shape = list(plane.shape)
-        shape[dim] = out
+        shape[dim] = idx.shape[1]
         acc = plane.new_zeros(shape)
     return acc
 

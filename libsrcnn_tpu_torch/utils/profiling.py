@@ -40,7 +40,7 @@ it.  The counters (:data:`counts`):
 * ``resize.tables_built``: resize index / weight tables built (cache
   misses of ``ops.resize``);
 * ``kernels.libs_loaded``: kernel libraries loaded (``fused_conv._lib``
-  misses).
+  and ``resample._lib`` misses).
 """
 
 from __future__ import annotations
@@ -76,12 +76,14 @@ def span(name: str):
 
 def counts_snapshot() -> collections.Counter:
     """A copy of :data:`counts`, with the fused kernels' launches
-    (``fused_conv.launches_by``) as ``kernels.launch.<kernel>``."""
-    from ..kernels import fused_conv
+    (``fused_conv.launches_by``) as ``kernels.launch.<kernel>`` and the
+    resize's (``resample.launches``) as ``kernels.launch.resample``."""
+    from ..kernels import fused_conv, resample
 
     snap = collections.Counter(counts)
     for kernel, n in fused_conv.launches_by.items():
         snap[f"kernels.launch.{kernel}"] = n
+    snap["kernels.launch.resample"] = resample.launches
     return snap
 
 

@@ -124,15 +124,13 @@ def test_span_without_a_profiler_is_the_shared_null_context(monkeypatch):
 
 
 def _tables_missed() -> int:
-    return (resize._band_tensors.cache_info().misses +
-            resize._identity_index.cache_info().misses)
+    return resize._band_stack.cache_info().misses
 
 
 @pytest.mark.parametrize("shape,scale", [((9, 11, 3), 2.0), ((9, 11, 4), 1.5),
                                          ((8, 8, 3), 1.0)])
 def test_tables_built_counts_each_new_table_once(shape, scale):
-    resize._band_tensors.cache_clear()
-    resize._identity_index.cache_clear()
+    resize._band_stack.cache_clear()
     img = _image(shape)
     before = profiling.counts["resize.tables_built"]
     api.upscale(img, scale, device="cpu")
