@@ -141,7 +141,8 @@ def upscale(
         ``compute_dtype="int8"`` the quantized pack (see
         :func:`.models.srcnn_int8.params_from_jax`).  Defaults to the
         shipped weights of the model and tier (an LR family's head for
-        ``scale``, or x2 under step-scale).
+        ``scale``, or x2 under step-scale); ``"swinir"`` ships none, and
+        without ``params`` raises ``ValueError``.
       return_conv_map: also return the u8 Y-channel conv3 map (a family's
         output plane); defaults to ``config.emit_conv_map``.
       device: where the pass runs.  ``"cuda"`` (default) raises when there

@@ -45,6 +45,9 @@ Three model kinds, three halo plans, each derived from the model:
   halo's output rows are cropped.  Every kept output row's receptive field
   lies inside the slice's real rows or reaches a true image edge, where
   the slice border is the image border, so no flags are needed.
+* **swinir** is refused (``pipeline.refuse_whole_frame``): its shifted windows
+  chain every window to its neighbours through all the layers, so no
+  finite halo gives a band the frame's values.
 
 The families run at ``float32`` and ``bfloat16`` on either device, through
 the same convs as the one-shot pass (:mod:`.ops.conv`), whose per-pixel
@@ -178,6 +181,7 @@ def _resolve_chunked(cfg: SRCNNConfig, device: torch.device) -> bool:
                          "path (bands run the LR stacks unpacked; leave "
                          "lane_pack unset/False)")
     pipeline.check_supported(cfg)
+    pipeline.refuse_whole_frame(cfg, "upscale_chunked")
     if cfg.model != "srcnn":
         return False
     use_kernel = pipeline.resolve_kernel(cfg.use_kernel, device)

@@ -78,7 +78,11 @@ class SRCNNConfig:
         ``"bfloat16"`` (bf16 operands, exact products, f32 accumulation on
         every device, :mod:`libsrcnn_tpu_torch.ops.conv`; the JAX
         package's CPU backend computes exact f32 for it instead) and raise
-        ``ValueError`` for the other two.
+        ``ValueError`` for the other two.  ``"swinir"`` is SwinIR classical
+        SR (an LR family with a pixel-shuffle head, x2 as published): the
+        ``float32`` tier only, whole frames only (no ``upscale_chunked``,
+        no tiled path), and no shipped weights, so ``params`` must be
+        given (``models.swinir.init_params``' layout).
       lane_pack: the JAX package's MXU-lane-packed formulation of the
         learned families' convs (p adjacent output columns share the TPU's
         128 lanes; the same f32 MACs in another reduction order).  The port

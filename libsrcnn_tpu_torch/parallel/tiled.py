@@ -213,7 +213,8 @@ def upscale_tiled(image, params, multiply: float, cfg: SRCNNConfig, mesh: Mesh):
     package.  The HR families (vdsr, srcnn955) exchange
     ``halo_width(spec)`` output pixels and the LR families (fsrcnn, espcn)
     ``lr_halo_width`` LR pixels, at ``float32`` and ``bfloat16``; an LR
-    head takes its own scale exactly.  ``self_ensemble=True`` runs four
+    head takes its own scale exactly; swinir is refused, having no finite
+    halo (``pipeline.refuse_whole_frame``).  ``self_ensemble=True`` runs four
     tiled passes (:func:`_tiled_ensemble`).  No step-scale (chain calls per
     x2 pass) and no ``lane_pack=True``.
 
@@ -221,6 +222,7 @@ def upscale_tiled(image, params, multiply: float, cfg: SRCNNConfig, mesh: Mesh):
     gets its own tiles: ``(out_shards, conv_shards)``, lists of
     ``halo.Shard`` (no ensemble there: its flipped passes would put a
     rank's tile on another rank)."""
+    pipeline.refuse_whole_frame(cfg, "upscale_tiled")
     if cfg.self_ensemble:
         if mesh.multi_process:
             raise ValueError("self_ensemble is not implemented on a mesh that spans "

@@ -22,8 +22,9 @@ for bit.
 
 The model zoo (`:156-166`) runs its families on the same color and resize
 ops: the HR families (``vdsr``, ``srcnn955``) refine the classically
-resized Y plane, the LR families (``fsrcnn``, ``espcn``) upscale the
-source Y plane with their learned heads.  Their convs are library convs
+resized Y plane, the LR families (``fsrcnn``, ``espcn``, and ``swinir``,
+which the JAX package lacks) upscale the source Y plane with their
+learned heads.  Their convs are library convs
 (:mod:`.ops.conv`), as the JAX package's are XLA convs, at the two family
 tiers of :func:`family_precision`.
 
@@ -43,7 +44,7 @@ import torch.nn.functional as F
 
 from .config import FilterType, SRCNNConfig, chroma_filter
 from .kernels import fused_conv
-from .models import espcn, fsrcnn, srcnn, srcnn_generic, srcnn_int8, vdsr
+from .models import espcn, fsrcnn, srcnn, srcnn_generic, srcnn_int8, swinir, vdsr
 from .ops import color, resize
 from .utils import checks
 from .utils.profiling import span
@@ -57,13 +58,24 @@ KERNEL_PRECISION = {"float32": "exact", "bfloat16": "split",
                     "bfloat16_fast": "bf16x1"}
 #: model families that run at LOW resolution with a learned upscale head
 #: (``forward_lr``); one checkpoint per integer factor
-LR_FAMILIES = ("fsrcnn", "espcn")
+LR_FAMILIES = ("fsrcnn", "espcn", "swinir")
 #: learned families that, like srcnn, refine the classically interpolated
 #: plane (``forward_hr``): one checkpoint serves every factor
 HR_FAMILIES = ("vdsr", "srcnn955")
 #: model name -> its module
 FAMILY_MODULES = {"fsrcnn": fsrcnn, "espcn": espcn, "vdsr": vdsr,
-                  "srcnn955": srcnn_generic}
+                  "srcnn955": srcnn_generic, "swinir": swinir}
+
+
+def refuse_whole_frame(cfg: SRCNNConfig, path: str) -> None:
+    """Raise ``ValueError`` for swinir, which runs on whole frames only:
+    ``path`` cuts the frame into bands or tiles."""
+    if cfg.model == "swinir":
+        raise ValueError(
+            f"{path} does not run {cfg.model}: its shifted windows chain every "
+            f"window to its neighbours through all the layers, on a window grid "
+            f"anchored at the frame's corner, so no finite halo gives a band or "
+            f"tile the frame's values; use upscale on the whole frame")
 
 
 def validate_compute_dtype(cfg: SRCNNConfig) -> None:
@@ -93,9 +105,14 @@ def family_precision(compute_dtype: str) -> str:
 def check_supported(cfg: SRCNNConfig) -> None:
     """Raise ``ValueError`` for a config the JAX package rejects: an unknown
     model, an srcnn tier that is not one, a family tier other than
-    ``float32`` / ``bfloat16``."""
+    ``float32`` / ``bfloat16``; and any tier but ``float32`` for swinir,
+    which has no bf16 path for its matmuls."""
     if cfg.model == "srcnn":
         validate_compute_dtype(cfg)
+    elif cfg.model == "swinir" and cfg.compute_dtype != "float32":
+        raise ValueError(f"{cfg.model} takes compute_dtype='float32' only (exact "
+                         f"f32; no bf16 path for its matmuls), got "
+                         f"{cfg.compute_dtype!r}")
     elif cfg.model in FAMILY_MODULES:
         family_precision(cfg.compute_dtype)
     else:

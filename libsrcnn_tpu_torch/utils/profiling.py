@@ -25,6 +25,13 @@ The spans, in the order of a still request; a pass's spans nest in
 * ``sr.resize``: one plane's resize (each chroma plane, the Y plane with
   its halo);
 * ``sr.conv_stack``: the model on the Y plane, its weight pack included;
+* ``sr.swinir.attn``, ``sr.swinir.mlp``, ``sr.swinir.conv`` (inside
+  ``sr.conv_stack``, for ``models.swinir``): a Swin layer's attention
+  (LN1, roll, partition, qkv, scores, bias, mask, softmax, AV, proj,
+  reverse, roll back, residual add), its MLP (LN2, fc1, GELU, fc2,
+  residual add), and the rest of the model (scaling, pad and crop, every
+  3x3 conv with its residual, the whole-image LayerNorms, the bias gather,
+  the head);
 * ``sr.color.merge``: planar -> u8 RGB(A), and the conv map's u8 cast;
 * ``sr.serve.upload``, ``sr.serve.download``: ``serve``'s host <-> device
   copies.
@@ -40,7 +47,10 @@ it.  The counters (:data:`counts`):
 * ``resize.tables_built``: resize index / weight tables built (cache
   misses of ``ops.resize``);
 * ``kernels.libs_loaded``: kernel libraries loaded (``fused_conv._lib``
-  and ``resample._lib`` misses).
+  and ``resample._lib`` misses);
+* ``swinir.windows``: windows a SwinIR layer attended, summed over layers;
+* ``swinir.masks_built``: SwinIR's relative-position index and shift mask
+  built for a padded size and device (cache misses).
 """
 
 from __future__ import annotations
@@ -56,8 +66,9 @@ import torch
 
 #: every span of the program, in the order of a still request
 SPANS = ("sr.api.upscale", "sr.api.params", "sr.api.upload", "sr.pipeline.pass",
-         "sr.color.split", "sr.resize", "sr.conv_stack", "sr.color.merge",
-         "sr.api.download", "sr.serve.upload", "sr.serve.download")
+         "sr.color.split", "sr.resize", "sr.conv_stack", "sr.swinir.attn",
+         "sr.swinir.mlp", "sr.swinir.conv", "sr.color.merge", "sr.api.download",
+         "sr.serve.upload", "sr.serve.download")
 #: what :func:`span` returns while no profiler runs
 NO_SPAN = contextlib.nullcontext()
 #: the program's counters (see the module's notes); a plain add at each
