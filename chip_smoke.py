@@ -45,10 +45,14 @@ Drives the port's paths on the card through its hand-written CUDA kernels
    -> 8x2160x3840): ``resize_plane_padded`` and ``resize_plane`` on the
    card equal to the same calls on the CPU bit for bit, and timed beside
    the plain version's torch taps on the card and its HBM-bytes bound;
+   then C, the color kernels, at the same clip's shapes (its 8x1080x1920
+   RGB split, its 8x2160x3840 Y, Cb, Cr merged into RGB and the conv
+   map): each equal bit for bit to the plain version's torch expressions
+   on the card, and timed beside them and its HBM-bytes bound;
 4. the main path, exact tier: ``upscale(..., device="cuda")`` on four
    seeded 1024x1024 RGB frames at x2, the 29 reference-binary golden
    configs and one ``process_srcnn`` call -- K1 launched once per pass,
-   R twice per plane of a pass (six for an RGB frame),
+   R twice per plane of a pass (six for an RGB frame), C twice per pass,
    each frame within 1 u8 LSB of the plain path on the card, each golden
    within 1 u8 LSB of the reference binary;
 5. the throughput tiers on the same path: the four frames and the tier
@@ -261,8 +265,8 @@ Drives the port's paths on the card through its hand-written CUDA kernels
     The phase's launches are added to the kernels record.
 
 The second-to-last line is a JSON record of the kernels (R's with its ms,
-plain ms and bytes bound per plane of phase 3's clip, and its launches
-from phase 3 on); the last line is
+plain ms and bytes bound per plane of phase 3's clip, C's per direction,
+and their launches from phase 3 on); the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
 without a CUDA device the script exits non-zero before printing a result.
 """
@@ -326,7 +330,7 @@ BEFORE_WGMMA_MS = {"K2": 0.984, "K4": 0.755, "K3": 0.606, "K3n": 0.696, "K5": 0.
 # run so that the record compares across versions: K1's conv2 and K4's taps
 # (every cut's time is printed in phase 9)
 RECORD_CUT = {"K6": ("K1", "conv2"), "K7": ("K4", "taps")}
-CLIP_FRAMES = 8      # the frames of the clip whose shapes R is held at
+CLIP_FRAMES = 8      # the frames of the clip whose shapes R and C are held at
 INT8_PSNR = 38.0     # butterfly x2 against the exact tier (tests/test_int8.py)
 # H100 SXM dense peak rates at 700 W (NVIDIA's data sheet)
 PEAK_BF16_FLOPS = 989e12
@@ -2400,6 +2404,61 @@ def resample_phase(dev) -> dict:
             "shape": f"{n}x{h}x{w} x2: Y padded by {halo}, a chroma plane"}
 
 
+def color_phase(dev) -> dict:
+    """Phase 3's last part: C, the color kernels, at one clip's shapes: the
+    split of its 1080p RGB frames and the merge of its 4K Y, Cb and Cr into
+    RGB and the conv map, each equal bit for bit to the plain version's
+    torch expressions on the card, then timed beside them and the bytes
+    bound: the median of 30 CUDA-event times of 10 calls in a row, over
+    10, so that the host's work per call (~0.03 ms) hides behind the
+    card's.  Returns the kernels record's fields of C."""
+    from libsrcnn_tpu_torch.kernels import color as color_kernel
+    from libsrcnn_tpu_torch.ops import color
+
+    t_phase = time.perf_counter()
+    n, h, w = CLIP_FRAMES, 1080, 1920
+    g = torch.Generator(device=dev).manual_seed(25)
+    rgb = torch.randint(0, 256, (n, h, w, 3), dtype=torch.uint8, device=dev,
+                        generator=g)
+    # the merge's planes as a pass hands them over: the model's Y, resized
+    # chroma, some of each beyond [0, 255]
+    y, *rest = [torch.rand((n, 2 * h, 2 * w), generator=g, device=dev) * 300 - 20
+                for _ in range(3)]
+    launches0 = color_kernel.launches
+    calls = {"split": (lambda: color.rgb_to_ycbcr(rgb),
+                       lambda: color.plain_rgb_to_ycbcr(rgb), 15 * rgb.numel() // 3),
+             "merge": (lambda: color.merge(y, rest),
+                       lambda: color.plain_merge(y, rest), 16 * y.numel())}
+    ms, plain_ms, bound_ms = {}, {}, {}
+
+    def ten(fn):
+        def run():
+            for _ in range(10):
+                fn()
+        return run
+
+    for name, (kernel, plain, moved) in calls.items():
+        got, want = kernel(), plain()
+        if name == "split":
+            got, want = [got.view(torch.int32)], [want.view(torch.int32)]
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"C, {name}: the kernel differs from the torch expressions on the card")
+        t = timed({"kernel": ten(kernel), "plain": ten(plain)}, runs=15)
+        ms[name], plain_ms[name] = t["kernel"] / 10, t["plain"] / 10
+        bound_ms[name] = 1e3 * moved / PEAK_BYTES
+        print(f"C, {name}: equal to the torch expressions bit for bit; "
+              f"{ms[name]:.4f} ms against {plain_ms[name]:.3f} ms for them on the "
+              f"card; bound {bound_ms[name]:.4f} ms ({moved / 1e6:.0f} MB at "
+              f"{PEAK_BYTES / 1e12:.2f} TB/s, {100 * bound_ms[name] / ms[name]:.1f}% "
+              f"of it)")
+        del got, want
+    torch.cuda.synchronize()
+    launches = color_kernel.launches - launches0
+    print(f"C in {time.perf_counter() - t_phase:.1f} s: {launches} launches")
+    return {"launches": launches, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "shape": f"split {n}x{h}x{w}x3, merge {n}x{2 * h}x{2 * w} x3 planes"}
+
+
 def main() -> int:
     # --- 1. the card ------------------------------------------------------
     if not torch.cuda.is_available():
@@ -2416,6 +2475,7 @@ def main() -> int:
     from libsrcnn_tpu_torch import pipeline
     from libsrcnn_tpu_torch.eval import psnr, ssim
     from libsrcnn_tpu_torch.kernels import _build, ablation, fused_conv, resample
+    from libsrcnn_tpu_torch.kernels import color as color_kernel
     from libsrcnn_tpu_torch.ops import resize
     from libsrcnn_tpu_torch.tools import int8_ablation, kernel_ablation, trace_kernel
     from libsrcnn_tpu_torch.models import srcnn, srcnn_int8
@@ -2433,7 +2493,8 @@ def main() -> int:
     t = time.perf_counter()
     fused_conv.build_all()
     print(f"build: fused_srcnn.cu + fused_srcnn_bf16.cu + fused_srcnn_int8.cu, "
-          f"each also with {' '.join(_build.PROFILING_FLAGS)}, and resample.cu, in "
+          f"each also with {' '.join(_build.PROFILING_FLAGS)}, resample.cu and "
+          f"color.cu, in "
           f"{time.perf_counter() - t:.1f} s ({' '.join(_build.NVCC_FLAGS)})")
     for name, log in _build.build_logs.items():
         for fn, line in ptxas_lines(log):
@@ -2465,6 +2526,12 @@ def main() -> int:
         check(c["HGMMA"] + c["IGMMA"] > 0 and c["HMMA"] == c["IMMA"] == 0,
               f"the production {kernel} is not a wgmma kernel: {c}")
     check(prod[("K1", "full")]["FFMA"] == 0, "the production K1 holds FFMA")
+    # R and C round each product and sum on its own, as the torch ops do
+    for lib in (resample.LIBRARY, color_kernel.LIBRARY):
+        sass = subprocess.run([_build.tool("cuobjdump"), "-sass", _build.library_path(lib)],
+                              capture_output=True, text=True, check=True).stdout
+        check("FMUL" in sass and "FFMA" not in sass, f"{lib}: FFMA in the SASS")
+    print(f"SASS of {resample.LIBRARY} and {color_kernel.LIBRARY}: FMUL, no FFMA")
 
     # --- 3. kernels vs plain versions on the card --------------------------
     t_phase = time.perf_counter()
@@ -2578,8 +2645,10 @@ def main() -> int:
           f"{k3_worst['ratio']:.4g}, {k3_worst['over']} pixels over")
 
     r_record = resample_phase(dev)
-    # R's launches from here on, summed over every reset of the counters
-    launches = {"R": 0}
+    c_record = color_phase(dev)
+    # R's and C's launches from here on, summed over every reset of the
+    # counters
+    launches = {"R": 0, "C": 0}
 
     # --- 4. the main path, exact tier ---------------------------------------
     passes = resamples = 0
@@ -2603,6 +2672,8 @@ def main() -> int:
             fused_conv.launches_by[k] = 0
         launches["R"] += resample.launches
         resample.launches = 0
+        launches["C"] += color_kernel.launches
+        color_kernel.launches = 0
 
     frames = [frame(100 + i, 1024, 1024) for i in range(4)]
     z = np.load(GOLDENS)
@@ -2613,6 +2684,8 @@ def main() -> int:
         frame_outs = [lt.upscale(f, 2.0, device="cuda") for f in frames]
         check(passes == 4 and resample.launches == resamples == 6 * passes,
               f"{resample.launches} R launches for {passes} RGB passes")
+        check(color_kernel.launches == 2 * passes,
+              f"{color_kernel.launches} C launches for {passes} passes")
         golden_outs = []
         for meta in z["meta"]:
             key, name, mult, filt, step, _ = str(meta).split(",")
@@ -2631,11 +2704,15 @@ def main() -> int:
               f"{dict(fused_conv.launches_by)} launches for {passes} passes")
         check(resample.launches == resamples,
               f"{resample.launches} R launches where {passes} passes make {resamples}")
+        check(color_kernel.launches == 2 * passes,
+              f"{color_kernel.launches} C launches where {passes} passes make "
+              f"{2 * passes}")
     finally:
         pipeline.run_pass = run_pass
     print(f"exact tier: 4 frames + {len(golden_outs)} goldens + 1 "
           f"process_srcnn in {served_s:.2f} s: {passes} passes, "
-          f"{launches['K1']} K1 launches, {resamples} R launches")
+          f"{launches['K1']} K1 launches, {resamples} R launches, "
+          f"{color_kernel.launches} C launches")
 
     for i, (f, out) in enumerate(zip(frames, frame_outs)):
         check(out.shape == (2048, 2048, 3) and out.dtype == np.uint8,
@@ -3062,6 +3139,16 @@ def main() -> int:
         "replaces": "none: the JAX resize is XLA (libsrcnn_tpu/ops/resize.py)",
         "max_abs_err": 0.0, "bound_by": "bytes", "library_ms": None,
         **r_record, "launches": launches["R"],
+    })
+    launches["C"] += color_kernel.launches
+    # C from phase 3: one clip's split and merge; equal to the torch
+    # expressions on the card bit for bit, and no library call computes them
+    records.append({
+        "name": "C", "route": "cuda",
+        "source": "libsrcnn_tpu_torch/kernels/csrc/color.cu",
+        "replaces": "none: the JAX color op is XLA (libsrcnn_tpu/ops/color.py)",
+        "max_abs_err": 0.0, "bound_by": "bytes", "library_ms": None,
+        **c_record, "launches": launches["C"],
     })
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

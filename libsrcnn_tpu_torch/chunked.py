@@ -264,8 +264,7 @@ def upscale_chunked(image, multiply: float, cfg: SRCNNConfig = DEFAULT_CONFIG,
         """The band's chroma rows beside its Y result -> (out_u8, conv_u8)."""
         vc_idx, vc_w = table(gc_idx, rows_c, smin), table(gc_w, rows_c)
         rest = [_band_resize(p, vc_idx, vc_w, w, dst_w, c_filter) for p in src[1:]]
-        out_u8 = color.ycbcr_to_rgb(torch.stack([y_sr, *rest], dim=0))
-        return out_u8, torch.floor(y_sr).to(torch.uint8)
+        return color.merge(y_sr, rest)
 
     def planes_of(img, smin, smax):
         src = torch.from_numpy(np.ascontiguousarray(img[smin:smax])).to(dev)

@@ -83,10 +83,8 @@ def _resized(frame, d, dst_h, dst_w, y_filter, c_filter):
 def _final(y_sr, chroma):
     """The merged u8 output planes and the conv map of a clamped Y plane,
     as f32 [d+1, H', W']."""
-    planes = torch.cat([y_sr[None], chroma]) if chroma is not None else y_sr[None]
-    out_u8 = color.ycbcr_to_rgb(planes)
-    conv_u8 = torch.floor(y_sr)   # the truncating cast (`libsrcnn.cpp:897-901`)
-    return torch.cat([out_u8.permute(2, 0, 1).to(torch.float32), conv_u8[None]])
+    out_u8, conv_u8 = color.merge(y_sr, [] if chroma is None else list(chroma))
+    return torch.cat([out_u8.permute(2, 0, 1), conv_u8[None]]).to(torch.float32)
 
 
 def _atoms(params, d, dst_h, dst_w, y_filter, c_filter, n_chroma, device):

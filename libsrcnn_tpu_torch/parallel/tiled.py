@@ -186,10 +186,9 @@ def _run(image, params, multiply: float, cfg: SRCNNConfig, mesh: Mesh,
                                               halo=model_halo, precision=prec),
                         halo_mod.exchange2d(src, model_halo, owners))
 
-    out = tile_map(lambda ri, ci, y: color.ycbcr_to_rgb(
-        torch.cat([y[None], chroma[ri][ci]])), y_sr)
-    # the model's output is clamped to [0, 255]: truncating u8 cast
-    conv = tile_map(lambda ri, ci, y: torch.floor(y).to(torch.uint8), y_sr)
+    merged = tile_map(lambda ri, ci, y: color.merge(y, list(chroma[ri][ci])), y_sr)
+    out = tile_map(lambda ri, ci, m: m[0], merged)
+    conv = tile_map(lambda ri, ci, m: m[1], merged)
     return halo_mod.gather(out, (0, 1), owners), halo_mod.gather(conv, owners=owners)
 
 

@@ -244,11 +244,7 @@ def _single_pass(img_u8: torch.Tensor, params: dict, *, dst_h: int, dst_w: int,
     if checks.debug_checks_enabled():
         checks.require_finite(y_sr, "the conv stack's Y plane")
     with span("sr.color.merge"):
-        out_u8 = color.ycbcr_to_rgb(torch.stack([y_sr, *rest], dim=0))
-        # the model's output is already clamped to [0,255]; truncating u8
-        # cast (`libsrcnn.cpp:897-901`)
-        conv_u8 = torch.floor(y_sr).to(torch.uint8)
-    return out_u8, conv_u8
+        return color.merge(y_sr, rest)
 
 
 def run_pass(img_u8: torch.Tensor, params: dict, multiply: float,

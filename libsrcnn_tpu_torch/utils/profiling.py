@@ -46,8 +46,8 @@ it.  The counters (:data:`counts`):
   (``fused_conv.pack_params``, ``pack_int8_params``);
 * ``resize.tables_built``: resize index / weight tables built (cache
   misses of ``ops.resize``);
-* ``kernels.libs_loaded``: kernel libraries loaded (``fused_conv._lib``
-  and ``resample._lib`` misses);
+* ``kernels.libs_loaded``: kernel libraries loaded (``fused_conv._lib``,
+  ``resample._lib`` and ``color._lib`` misses);
 * ``swinir.windows``: windows a SwinIR layer attended, summed over layers;
 * ``swinir.masks_built``: SwinIR's relative-position index and shift mask
   built for a padded size and device (cache misses).
@@ -87,14 +87,16 @@ def span(name: str):
 
 def counts_snapshot() -> collections.Counter:
     """A copy of :data:`counts`, with the fused kernels' launches
-    (``fused_conv.launches_by``) as ``kernels.launch.<kernel>`` and the
-    resize's (``resample.launches``) as ``kernels.launch.resample``."""
-    from ..kernels import fused_conv, resample
+    (``fused_conv.launches_by``) as ``kernels.launch.<kernel>``, the
+    resize's (``resample.launches``) as ``kernels.launch.resample`` and the
+    color kernels' (``color.launches``) as ``kernels.launch.color``."""
+    from ..kernels import color, fused_conv, resample
 
     snap = collections.Counter(counts)
     for kernel, n in fused_conv.launches_by.items():
         snap[f"kernels.launch.{kernel}"] = n
     snap["kernels.launch.resample"] = resample.launches
+    snap["kernels.launch.color"] = color.launches
     return snap
 
 
