@@ -148,11 +148,12 @@ def build(*names: str) -> None:
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
-def _fused(prefix: str, **entries: int) -> tuple[str, dict]:
-    """A fused conv library's C functions: its two constants, and each
-    entry point with (y, out, params, then ``entries[entry]`` ints: n, h,
-    w, the 4 edge flags and its own, then the stream)."""
-    return prefix, {"n_params": (), "max_rows": (),
+def _fused(prefix: str, own: dict | None = None, **entries: int) -> tuple[str, dict]:
+    """A fused conv library's C functions: its two constants, ``own``'s
+    functions with their own argument types, and each entry point with (y,
+    out, params, then ``entries[entry]`` ints: n, h, w, the 4 edge flags
+    and its own, then the stream)."""
+    return prefix, {"n_params": (), "max_rows": (), **(own or {}),
                     **{e: (_P,) * 3 + (_I,) * n + (_P,) for e, n in entries.items()}}
 
 
@@ -160,9 +161,10 @@ def _fused(prefix: str, **entries: int) -> tuple[str, dict]:
 #: types}); every function returns an int, a cudaError_t or a constant.
 #: The ``_prof`` libraries add the profiling path's entry points:
 #: ``cut_forward`` (K6, K7: [kernel index,] stage) and ``band_forward``
-#: (K5: tile_h).
+#: (K5: tile_h); K1's library adds its strip walk's ``segment_tiles`` (n,
+#: h, w, SMs -> tiles per segment).
 LIBRARIES = {
-    "fused_srcnn": _fused("srcnn_fused", forward=7),
+    "fused_srcnn": _fused("srcnn_fused", {"segment_tiles": (_I,) * 4}, forward=7),
     "fused_srcnn_bf16": _fused("srcnn_bf16", forward=8),
     "fused_srcnn_int8": _fused("srcnn_int8", forward=7),
     "fused_srcnn_prof": _fused("srcnn_fused", forward=7, cut_forward=8),

@@ -24,30 +24,44 @@
 // What bounds it: tensor-core operations.  8,032 useful MACs per output
 // pixel, 33.7 G at 2048^2, three passes at the card's 495 TFLOP/s dense TF32
 // is 0.409 ms, against 1.006 ms for the same MACs on the f32 FMA units and
-// 0.010 ms to move the ~34 MB of planes.  The tile's c2 ring is recomputed
-// by its neighbours (20 x 64 ring positions per 16 x 60 outputs, 1.33x), K
-// of conv1 is padded from 81 to 88 and the tap GEMM's N from 25 to 32.
-// Measured on an H100 SXM at 700 W: ~1.09 ms per 2048^2 plane, 37% of the
-// bound; conv1 runs near the tensor cores' rate for the work it issues,
-// conv2 and the tap GEMM at about half of it (PERF.md).
+// 0.010 ms to move the ~34 MB of planes.  A tile's c2 ring has 20 x 64
+// positions for 16 x 60 outputs; the 4 rows below its outputs are the
+// first 4 of the tile below, which takes them from it where the walk
+// hands both tiles to one block (below), so a segment of L tiles computes
+// 16 L + 4 ring rows, not 20 L (1.07x the output columns, 1.33x on a tile
+// that carries nothing).  K of conv1 is padded from 81 to 88 and the tap
+// GEMM's N from 25 to 32.  Measured on an H100 SXM at 700 W (PERF.md):
+// 13.35 ms for a clip's 8 x 2160 x 3840 planes (seg 15), 48% of their
+// 6.46 ms bound, and 0.992 ms per 2048^2 plane (seg 12), 41% of the bound,
+// against 15.63 and 1.037 ms with every tile computing its whole ring.
+// conv1 runs near the tensor cores' rate for the products it sends them,
+// conv2 and the tap GEMM at about half of it; a tile's work outside its
+// ring rows (window, clamp, shift-add, barriers) is some 6-10 us of its ~30.
 //
 // Design:
-// * A persistent grid: min(tiles, SMs) blocks of 256
-//   threads (two warpgroups), each walking the 16 x 60 output tiles of all
-//   n planes with a static stride (tile = blockIdx.x + i * gridDim.x).  No
-//   counter or other state outlives a launch, so launches with other
-//   parameters on other streams cannot interfere.
+// * A persistent grid of blocks of 256 threads (two warpgroups), one per
+//   SM, that walk strips.  A unit of work is a segment: up to L tiles
+//   stacked down one 60-column strip of one plane, walked top to bottom;
+//   the units are numbered by plane, segment row and strip, and block b
+//   takes units b, b + gridDim.x, ...  Each tile after a segment's first
+//   starts from the clamped tap-plane rows 16-19 of the tile above (a copy
+//   in shared memory), computes ring rows 4-19 only, and fetches and splits
+//   24 window rows, not 28.  L is a function of (n, h, w, SMs) alone
+//   (segment_tiles): the longest that bounds a block's ring rows least, so
+//   it shrinks to 1, the row-major tile walk, where longer segments would
+//   leave SMs idle.  No counter or other state outlives a launch, so
+//   launches with other parameters on other streams cannot interfere.
 // * The weights are split into hi and lo once per block, not once per
 //   tile, into wgmma B operands in shared memory: K-major, no swizzle
 //   (8-row x 16-byte core matrices, 128 B apart along K, one block of
 //   K/4 core matrices per 8 columns of N).  w1 is [88 x 64] (taps 81..87
 //   zero), w2 [64 x 32], w3 as the tap GEMM [32 x 32] (column n = tap 5 dy
 //   + dx, 25..31 zero).  69,632 bytes for the six.
-// * An asynchronous window.  The next tile's 28 x 72 input window is copied
-//   with 4-byte cp.async into a staging buffer while this tile computes
-//   (the plane's pitch (w+12)*4 is rarely a multiple of 16 bytes, which
-//   TMA and 16-byte cp.async need), then split once into a hi plane and a
-//   lo plane.
+// * An asynchronous window.  The next tile's 28 x 72 input window (rows
+//   4-27 only, if it carries) is copied with 4-byte cp.async into a
+//   staging buffer while this tile computes (the plane's pitch (w+12)*4
+//   is rarely a multiple of 16 bytes, which TMA and 16-byte cp.async
+//   need), then split once into a hi plane and a lo plane.
 // * M is ring positions: one ring row of 64 columns is one m64 tile, and
 //   warpgroup v takes ring rows v, v+2, ...  conv1 (K 88, N 64) takes its A
 //   operand from registers, an im2col done with 32-bit shared loads from
@@ -70,24 +84,28 @@
 // * Every pixel's sums run in one fixed order whatever the tile it sits in
 //   (the same passes and k-steps, the same shift-add order, no split of K
 //   across warps): the chunked path and serving rely on that for their
-//   bit-identity with upscale.
+//   bit-identity with upscale.  A carried ring row is the row the tile
+//   below would compute, in the same warpgroup and m64 position, and
+//   clamped by the same function of the global position: the walk changes
+//   no bit.
 // * Ragged tiles clamp their window reads into the plane and mask their
-//   output stores; offsets into the planes and the tile walk are 64-bit.
+//   output stores; offsets into the planes and the strip walk are 64-bit.
 //
-// Geometry and shared memory: 16 x 60 output tile, 20 x 64 c2 ring (1.33x
-// recomputation), 28 x 72 window.  G 128,400 B; B operands 69,632 B;
-// biases 512 B; three window planes (staging, hi, lo) 24,192 B; 223,360 B
-// in all, one block per SM.
+// Geometry and shared memory: 16 x 60 output tile, 20 x 64 c2 ring (16 x 64
+// computed on a tile that carries), 28 x 72 window.  G 128,400 B; B
+// operands 69,632 B; biases 512 B; three window planes (staging, hi, lo)
+// 24,192 B; 223,360 B in all, one block per SM.
 //
-// * srcnn_wgmma.cuh holds the wgmma wrappers, the tile walk and the
-//   persistent grid that K1 shares with K2 and K4.
+// * srcnn_wgmma.cuh holds the wgmma wrappers, the window prefetch and the
+//   SM count that K1 shares with K2-K5; the strip walk is K1's own.
 // * Profiling cuts (K6 of kernels/ablation.py, built only with
 //   -DSRCNN_PROFILING): the STAGE template argument stops the kernel after
 //   its window is split and its weights are staged (LOAD), after conv1
 //   (CONV1), conv2 (CONV2) or the tap GEMM (TAPS); srcnn_common.cuh says
-//   what a cut writes.  The TPU tool's dma / roll / im2col stages have no
-//   counterpart here: there is no lane rotate, and conv1's im2col is done
-//   in registers.  The production kernel is the FULL instance.
+//   what a cut writes; a cut stores each output row from the ring row that
+//   computes it, carried or not.  The TPU tool's dma / roll / im2col stages
+//   have no counterpart here: there is no lane rotate, and conv1's im2col
+//   is done in registers.  The production kernel is the FULL instance.
 
 #include <climits>
 #include <cuda_runtime.h>
@@ -110,7 +128,9 @@ constexpr int GS = M + 4;                 // tap-plane stride: spreads banks
 constexpr int K1P = 88;                   // conv1's K, 81 taps padded
 constexpr int KS1 = K1P / 8, KS2 = C1 / 8, KS3 = C2 / 8;  // k8 steps: 11, 8, 4
 constexpr int NG = 32;                    // the tap GEMM's N, 25 taps padded
+constexpr int CARRY = RH - TH;            // ring rows a tile shares with the one below
 static_assert(RW == 64 && RH % NWG == 0, "one m64 tile per ring row");
+static_assert(CARRY % NWG == 0, "a carried tile keeps each ring row's warpgroup");
 
 // Shared memory, bytes.  A B operand of K rows and N columns takes
 // (K / 4) * (N / 8) core matrices of 128 bytes.
@@ -274,16 +294,19 @@ struct BDescs {
   uint64_t w1h, w1l, w2h, w2l, w3h, w3l;
 };
 
-// conv1, conv2 and the tap GEMM over the tile's c2 ring, from the split
-// window in shared memory: the 25 tap planes into gs.  Warpgroup wg takes
-// ring rows wg, wg + NWG, ...; each is one m64 tile.  A cut (STAGE < FULL)
-// writes its per-pixel value to `out` instead and leaves gs alone.
+// conv1, conv2 and the tap GEMM over ring rows a0 .. RH-1 of the tile's c2
+// ring, from the split window in shared memory: their 25 tap planes into
+// gs.  Warpgroup wg takes ring rows a0 + wg, a0 + wg + NWG, ...; each is one
+// m64 tile.  A cut (STAGE < FULL) writes its per-pixel value to `out`
+// instead, for the ring rows that are output rows r0 .. r0+th-1, and leaves
+// gs alone.
 template <int STAGE>
 __device__ __forceinline__ void ring_gemms(const uint32_t* winh,
                                            const uint32_t* winl,
                                            const float* b1s, const BDescs& bd,
                                            float* gs, float* __restrict__ out,
-                                           int r0, int q0, int h, int w, int t) {
+                                           int r0, int q0, int h, int w, int t,
+                                           int a0, int th) {
   const float* b2s = b1s + C1;
   const int wg = t / 128, warp = (t % 128) / 32, lane = t % 32;
   const int g = lane / 4, q = lane % 4;   // fragment row group, column
@@ -302,7 +325,7 @@ __device__ __forceinline__ void ring_gemms(const uint32_t* winh,
     }
 
 #pragma unroll 1
-  for (int a = wg; a < RH; a += NWG) {
+  for (int a = a0 + wg; a < RH; a += NWG) {
     float cut0 = 0.f, cut8 = 0.f;         // a cut's sums of rows g, g + 8
     // a cut's store: row g of this m64 tile is ring column mrow, row g + 8
     // eight columns to its right
@@ -310,8 +333,8 @@ __device__ __forceinline__ void ring_gemms(const uint32_t* winh,
       v0 = quad_sum(v0);
       v8 = quad_sum(v8);
       if (q == 0) {
-        cut_store(out, a, mrow, r0, q0, TH, TW, h, w, v0);
-        cut_store(out, a, mrow + 8, r0, q0, TH, TW, h, w, v8);
+        cut_store(out, a, mrow, r0, q0, th, TW, h, w, v0);
+        cut_store(out, a, mrow + 8, r0, q0, th, TW, h, w, v8);
       }
     };
     // conv1's A fragments of one window plane: rows (g, g+8) of k8 step s
@@ -417,6 +440,53 @@ __device__ __noinline__ void conv3_out(const float* gs, float b3,
   }
 }
 
+// Rows RH-CARRY .. RH-1 of the 25 tap planes, clamped, -> rows 0 .. CARRY-1:
+// the tile below's ring starts CARRY rows above this ring's end.
+__device__ __forceinline__ void carry_rows(float* gs, int t) {
+  constexpr int P = CARRY * RW;
+  for (int s = t; s < 25 * P; s += NT) {
+    float* g = gs + (s / P) * GS + s % P;
+    g[0] = g[(RH - CARRY) * RW];
+  }
+}
+
+// ---- the strip walk ------------------------------------------------------------
+
+// A unit of work is a segment: up to `seg` tiles stacked down one TW-column
+// strip of one plane, walked top to bottom.  Units are numbered by plane,
+// then segment row, then strip; block b takes units b, b + gridDim.x, ...
+struct Segment {
+  int plane, row, q0, len;                // row: its first tile row
+};
+
+__device__ __forceinline__ Segment segment_at(long long u, int tr, int tc, int seg) {
+  const long long per_plane = static_cast<long long>((tr + seg - 1) / seg) * tc;
+  const long long rem = u % per_plane;
+  const int row = static_cast<int>(rem / tc) * seg;
+  return {static_cast<int>(u / per_plane), row, static_cast<int>(rem % tc) * TW,
+          min(seg, tr - row)};
+}
+
+// The segment length of a launch over n planes of [h, w] on `sms` SMs:
+// the one that bounds a block's ring rows least, sum over its rounds of
+// RH + TH * (seg - 1), the longest on a tie.  seg = 1 is the row-major tile
+// walk, so no launch bounds worse than that.  kernels/fused_conv.py's
+// k1_walk computes the same.
+int segment_tiles(int n, int h, int w, int sms) {
+  const int tr = (h + TH - 1) / TH, tc = (w + TW - 1) / TW;
+  int best = 1;
+  long long best_rows = -1;
+  for (int seg = 1;;) {
+    const int segs = (tr + seg - 1) / seg;
+    const long long units = static_cast<long long>(n) * tc * segs;
+    const long long grid = units < sms ? units : sms;
+    const long long rows = (units + grid - 1) / grid * (RH + TH * (seg - 1LL));
+    if (best_rows < 0 || rows <= best_rows) best = seg, best_rows = rows;
+    if (segs == 1) return best;
+    seg = (tr + segs - 2) / (segs - 1);   // the shortest seg with fewer segments
+  }
+}
+
 // ---- the kernel --------------------------------------------------------------
 
 template <int STAGE = FULL>
@@ -424,7 +494,7 @@ __global__ void __launch_bounds__(NT, 1)
 fused_srcnn_kernel(const float* __restrict__ y,
                    const float* __restrict__ params,
                    float* __restrict__ out, int n, int h, int w, int f_top,
-                   int f_bottom, int f_left, int f_right) {
+                   int f_bottom, int f_left, int f_right, int seg) {
   extern __shared__ __align__(1024) unsigned char smem[];
   float* gs = reinterpret_cast<float*>(smem);                 // [25][GS]
   const float* b1s = reinterpret_cast<const float*>(smem + OFF_BIAS);
@@ -434,10 +504,12 @@ fused_srcnn_kernel(const float* __restrict__ y,
 
   const int t = threadIdx.x;
   const int tr = (h + TH - 1) / TH, tc = (w + TW - 1) / TW;
-  const long long tiles = static_cast<long long>(tr) * tc * n;
+  const long long units = static_cast<long long>((tr + seg - 1) / seg) * tc * n;
 
-  long long tile = blockIdx.x;
-  fetch_window<WH, WW, NT>(raw, y, tile_at<TH, TW>(tile, tr, tc), h, w, t);
+  long long unit = blockIdx.x;
+  Segment sg = segment_at(unit, tr, tc, seg);
+  int ti = 0;                             // this tile's place in its segment
+  fetch_window<WH, WW, NT>(raw, y, {sg.plane, sg.row * TH, sg.q0}, h, w, t);
   stage_params(params, smem, t);
   // the B operands are read by wgmma, through the async proxy
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -448,17 +520,29 @@ fused_srcnn_kernel(const float* __restrict__ y,
                      b_desc(smem + OFF_W3H, (C2 / 4) * 128),
                      b_desc(smem + OFF_W3L, (C2 / 4) * 128)};
 
-  for (; tile < tiles; tile += gridDim.x) {
-    const Tile tl = tile_at<TH, TW>(tile, tr, tc);
+  while (unit < units) {
+    const Tile tl = {sg.plane, (sg.row + ti) * TH, sg.q0};
     float* po = out + static_cast<long long>(tl.plane) * h * w;
+    // a tile below another of its segment takes ring rows 0 .. CARRY-1 from
+    // it, and needs window rows from CARRY on only
+    const int a0 = ti > 0 ? CARRY : 0;
+    const bool carries = ti + 1 < sg.len;  // the tile below takes rows from this one
+    long long next_unit = unit;           // this block's next tile
+    Segment next = sg;
+    int next_ti = ti + 1;
+    if (!carries) {
+      next_unit += gridDim.x;
+      next_ti = 0;
+      if (next_unit < units) next = segment_at(next_unit, tr, tc, seg);
+    }
 
     asm volatile("cp.async.wait_all;\n" ::: "memory");
     __syncthreads();
-    for (int i = t; i < WH * WW; i += NT) split_tf32(raw[i], winh[i], winl[i]);
+    for (int k = a0 * WW + t; k < WH * WW; k += NT) split_tf32(raw[k], winh[k], winl[k]);
     __syncthreads();
-    if (tile + gridDim.x < tiles)         // the next tile's window, meanwhile
-      fetch_window<WH, WW, NT>(raw, y, tile_at<TH, TW>(tile + gridDim.x, tr, tc),
-                               h, w, t);
+    if (next_unit < units)                // the next tile's window, meanwhile
+      fetch_window<WH, WW, NT>(raw, y, {next.plane, (next.row + next_ti) * TH, next.q0},
+                               h, w, t, next_ti > 0 ? CARRY : 0);
 
     if constexpr (STAGE == LOAD) {        // cut: the centre tap as split
       for (int s = t; s < TH * TW; s += NT) {
@@ -468,7 +552,10 @@ fused_srcnn_kernel(const float* __restrict__ y,
                   __uint_as_float(winh[i]) + __uint_as_float(winl[i]));
       }
     } else {
-      ring_gemms<STAGE>(winh, winl, b1s, bd, gs, po, tl.r0, tl.q0, h, w, t);
+      // a cut stores each output row from the ring row that computes it:
+      // the tile above computes this tile's first CARRY - 2 rows
+      ring_gemms<STAGE>(winh, winl, b1s, bd, gs, po, tl.r0, tl.q0, h, w, t, a0,
+                        carries ? TH + CARRY - 2 : TH);
     }
     __syncthreads();
     if constexpr (STAGE == FULL) {
@@ -478,7 +565,14 @@ fused_srcnn_kernel(const float* __restrict__ y,
                                  f_left, f_right);
       conv3_out(gs, b1s[C1 + C2], po, tl.r0, tl.q0, h, w, t);
       __syncthreads();                    // G and the window are rewritten next
+      // ring rows RH-CARRY.. are the clamped rows the tile below starts
+      // from (the clamp is a function of the global position); the next
+      // tile's first barrier orders this copy before its GEMMs
+      if (carries) carry_rows(gs, t);
     }
+    unit = next_unit;
+    sg = next;
+    ti = next_ti;
   }
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
@@ -491,10 +585,14 @@ cudaError_t launch(const float* y, float* out, const float* params, int n,
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
   if (e != cudaSuccess) return e;
-  int grid = 0;                           // one block per SM
-  if ((e = persistent_grid<TH, TW>(n, h, w, &grid)) != cudaSuccess) return e;
+  int sms = 0;                            // one block per SM
+  if ((e = sm_count(&sms)) != cudaSuccess) return e;
+  const int seg = segment_tiles(n, h, w, sms);
+  const int tr = (h + TH - 1) / TH, tc = (w + TW - 1) / TW;
+  const long long units = static_cast<long long>((tr + seg - 1) / seg) * tc * n;
+  const int grid = static_cast<int>(units < sms ? units : sms);
   kernel<<<grid, NT, SMEM_BYTES, stream>>>(y, params, out, n, h, w, f_top,
-                                           f_bottom, f_left, f_right);
+                                           f_bottom, f_left, f_right, seg);
   return cudaGetLastError();
 }
 
@@ -504,9 +602,15 @@ extern "C" {
 
 int srcnn_fused_n_params() { return N_PARAMS; }
 
-// The tile walk is 64-bit and the grid has one block per SM slot, so the
+// The strip walk is 64-bit and the grid has one block per SM slot, so the
 // limit is the int row arithmetic of a tile (r0 + WH, h + 2 HALO).
 int srcnn_fused_max_rows() { return INT_MAX - WH - 2 * HALO - TH; }
+
+// The tiles per segment of K1's strip walk for n planes of [h, w] on `sms`
+// SMs (kernels/fused_conv.py::k1_walk mirrors it).
+int srcnn_fused_segment_tiles(int n, int h, int w, int sms) {
+  return segment_tiles(n, h, w, sms);
+}
 
 // y: [n, h+12, w+12] f32, out: [n, h, w] f32, both contiguous; params:
 // N_PARAMS f32 in the packed layout; all on the current device.  Launches

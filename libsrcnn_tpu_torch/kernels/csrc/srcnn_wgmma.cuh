@@ -1,8 +1,9 @@
 // What the Hopper kernels K1 (fused_srcnn.cu), K2, K3, K3h, K3n and K5
 // (fused_srcnn_bf16.cu) and K4 (fused_srcnn_int8.cu) share: the wgmma
 // plumbing (descriptors of B operands in shared memory, fences and waits,
-// the instruction wrappers with A from registers) and the persistent
-// grid's tile walk.
+// the instruction wrappers with A from registers), the window prefetch and
+// the SM count; and the persistent grid's tile walk of K2-K5 (K1 walks
+// column strips of its own, fused_srcnn.cu).
 #pragma once
 
 #include <atomic>
@@ -175,14 +176,15 @@ __device__ __forceinline__ Tile tile_at(long long tile, int tr, int tc) {
 // Issue the cp.async copies of a tile's WH x WW input window = padded rows
 // r0 .. r0+WH-1, cols q0 .. q0+WW-1 of its plane, into `raw`, as one group
 // (4-byte copies: the plane's pitch (w+12)*4 is rarely a multiple of 16
-// bytes).  Reads past the plane (ragged tiles) are clamped in; they feed
-// only masked outputs.
+// bytes); window rows before `row0` are left as they are.  Reads past the
+// plane (ragged tiles) are clamped in; they feed only masked outputs.
 template <int WH, int WW, int NT>
 __device__ __forceinline__ void fetch_window(float* raw, const float* __restrict__ y,
-                                             Tile tl, int h, int w, int t) {
+                                             Tile tl, int h, int w, int t,
+                                             int row0 = 0) {
   const int ph = h + 2 * HALO, pw = w + 2 * HALO;
   const float* yp = y + static_cast<long long>(tl.plane) * ph * pw;
-  for (int i = t; i < WH * WW; i += NT) {
+  for (int i = row0 * WW + t; i < WH * WW; i += NT) {
     const int pr = min(tl.r0 + i / WW, ph - 1);
     const int pc = min(tl.q0 + i % WW, pw - 1);
     const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(raw + i));

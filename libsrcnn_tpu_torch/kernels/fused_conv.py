@@ -59,6 +59,9 @@ other.
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 
 from ..models import srcnn, srcnn_int8
@@ -97,6 +100,56 @@ _KERNELS = {"K1": ("fused_srcnn", "forward", ()),
 #: On Hopper both name the one K5 instance, a loop over the column tiles
 #: with a rolling window (``csrc/fused_srcnn_bf16.cu``).
 BAND_IMPLS = ("unroll", "fori")
+#: K1's output tile and c2 ring rows (``csrc/fused_srcnn.cu``: TH, TW, RH);
+#: a tile below another in its segment takes the last RH - TH of them
+K1_TILE = (16, 60)
+K1_RING_ROWS = 20
+
+
+class K1Walk(NamedTuple):
+    """A K1 launch's strip walk (:func:`k1_walk`)."""
+    seg: int              #: tiles per segment (the last of a strip may hold fewer)
+    units: int            #: segments: n planes x strips x segments per strip
+    grid: int             #: blocks, one per SM at most
+    tiles: int
+    rows_computed: int    #: ring rows the GEMMs compute over the launch
+    rows_carried: int     #: ring rows taken from the tile above instead
+
+
+@functools.lru_cache(maxsize=256)
+def k1_walk(n: int, h: int, w: int, sms: int) -> K1Walk:
+    """K1's walk of ``n`` planes of ``[h, w]`` on ``sms`` SMs, as the C
+    launch plans it (``segment_tiles`` in ``csrc/fused_srcnn.cu``).  A
+    segment is up to ``seg`` tiles stacked down one 60-column strip of a
+    plane; its first tile computes all 20 ring rows, each later one 16 and
+    takes 4 from the tile above.  ``seg`` is the one that bounds a block's
+    ring rows least (its rounds times ``20 + 16 (seg - 1)``), the longest
+    on a tie; ``seg = 1`` is the row-major tile walk, so no launch bounds
+    worse than that one."""
+    th, tw = K1_TILE
+    carry = K1_RING_ROWS - th
+    tr, tc = -(-h // th), -(-w // tw)
+    best, best_rows, seg = 1, None, 1
+    while True:
+        segs = -(-tr // seg)
+        units = n * tc * segs
+        rows = -(-units // min(units, sms)) * (K1_RING_ROWS + th * (seg - 1))
+        if best_rows is None or rows <= best_rows:
+            best, best_rows = seg, rows
+        if segs == 1:
+            break
+        seg = -(-tr // (segs - 1))        # the shortest seg with fewer segments
+    units = n * tc * -(-tr // best)
+    tiles = n * tc * tr
+    return K1Walk(best, units, min(units, sms), tiles,
+                  th * tiles + carry * units, carry * (tiles - units))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 #: the band height this port recommends for K5 (not a default: the JAX
 #: package's 64 is): the fastest of 8, 12, 16, 24, 32 and 64 rows at
 #: 2048^2 on an H100 (tools/trace_kernel.py --mode bf16x1band --th N,
@@ -363,10 +416,11 @@ def launch(kernel: str, packed: torch.Tensor, y_padded: torch.Tensor,
     [N, h+12, w+12] or [h+12, w+12] f32, ``out`` [N, h, w] or [h, w] f32,
     all contiguous on one device, on its current stream; ``tile_h`` is
     K5's band height and is read by K5 only.  Counts one launch in
-    :data:`launches_by`.  :func:`forward_y`, :func:`forward_y_int8` and
-    :func:`forward_y_band` check their arguments and call this; a caller
-    that keeps the packed weights of one parameter set may call it
-    directly."""
+    :data:`launches_by`, and for K1 the ring rows its walk computes and
+    carries (:func:`k1_walk`) in ``utils.profiling.counts``.
+    :func:`forward_y`, :func:`forward_y_int8` and :func:`forward_y_band`
+    check their arguments and call this; a caller that keeps the packed
+    weights of one parameter set may call it directly."""
     if kernel not in _KERNELS:
         raise ValueError(f"no kernel {kernel!r}; the kernels are {tuple(_KERNELS)} "
                          f"(K6 and K7 launch through kernels.ablation)")
@@ -375,6 +429,11 @@ def launch(kernel: str, packed: torch.Tensor, y_padded: torch.Tensor,
         _check_band(tile_h)
         extra = (tile_h,)
     run(name, entry, kernel, packed, y_padded, out, flags, *extra)
+    if kernel == "K1":
+        walk = k1_walk(1 if out.dim() == 2 else out.shape[0], *out.shape[-2:],
+                       _sm_count(out.device))
+        profiling.counts["k1.ring_rows_computed"] += walk.rows_computed
+        profiling.counts["k1.ring_rows_carried"] += walk.rows_carried
 
 
 def run(name: str, entry: str, counted: str, packed: torch.Tensor,

@@ -50,6 +50,10 @@ it.  The counters (:data:`counts`):
   misses of ``ops.resize``);
 * ``kernels.libs_loaded``: kernel libraries loaded (``kernels._build.library``
   misses);
+* ``k1.ring_rows_computed``, ``k1.ring_rows_carried``: c2 ring rows of
+  16 x 60 tiles that K1's GEMMs computed, and that a tile took from the
+  tile above it instead (``kernels.fused_conv.k1_walk``, added at each K1
+  launch);
 * ``swinir.windows``: windows a SwinIR layer attended, summed over layers;
 * ``swinir.masks_built``: SwinIR's relative-position index and shift mask
   built for a padded size and device (cache misses).

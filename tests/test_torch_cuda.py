@@ -172,10 +172,11 @@ def test_batched_launch_equals_per_plane(cuda, kernel):
 
 
 def test_k1_persistent_grid_walks_many_tiles(cuda):
-    """K1 runs at most one block per SM slot, each walking the batch's
-    tiles with a static stride and prefetching its next window: a batch of
-    612 tiles (several per block) equals its plain version, and each plane
-    (102 tiles, at most one per block) launched alone."""
+    """K1 runs at most one block per SM slot, each walking segments of
+    tiles down column strips and prefetching its next window: a batch of
+    612 tiles (segments of 6, carried rows) equals its plain version, and
+    each plane (102 tiles, one per block, nothing carried) launched
+    alone."""
     p = srcnn.load_params(cuda)
     ys = torch.stack([_plane(269, 313, 60 + i, cuda) for i in range(6)])
     got = fused_conv.forward_y(p, ys, 257, 301, (1, 0, 0, 1))
@@ -183,6 +184,70 @@ def test_k1_persistent_grid_walks_many_tiles(cuda):
     assert float((got - ref).abs().max()) <= ATOL
     for i in range(6):
         assert torch.equal(got[i], fused_conv.forward_y(p, ys[i], 257, 301, (1, 0, 0, 1)))
+
+
+def _walk(n, h, w, cuda):
+    return fused_conv.k1_walk(n, h, w, fused_conv._sm_count(cuda))
+
+
+def test_k1_plane_alone_equals_plane_in_a_batch_of_16(cuda):
+    """K1's strip walk cuts a 1100 x 240 plane into other segments alone
+    than in a batch of 16: equal bits all the same."""
+    p = srcnn.load_params(cuda)
+    ys = torch.stack([_plane(1112, 252, 70 + i, cuda) for i in range(16)])
+    assert _walk(1, 1100, 240, cuda).seg != _walk(16, 1100, 240, cuda).seg
+    got = fused_conv.forward_y(p, ys, 1100, 240)
+    for i in (0, 7, 15):
+        assert torch.equal(got[i], fused_conv.forward_y(p, ys[i], 1100, 240))
+
+
+@pytest.mark.parametrize("flags", [None, (1, 0, 0, 1)])
+def test_k1_tall_plane_matches_plain_version(cuda, flags):
+    """A 1100 x 300 plane, many segments of several tiles, each later tile
+    starting from the rows of the one above; and the two ring-row counters
+    advance by the walk's numbers on the launch."""
+    p = srcnn.load_params(cuda)
+    y = _plane(1112, 312, 71, cuda)
+    walk = _walk(1, 1100, 300, cuda)
+    assert walk.rows_carried > 0
+    before = profiling.counts_snapshot()
+    got = fused_conv.forward_y(p, y, 1100, 300, flags)
+    torch.cuda.synchronize()
+    assert profiling.launches_since(before) == {"K1": 1}
+    for name in ("computed", "carried"):
+        key = f"k1.ring_rows_{name}"
+        assert profiling.counts[key] - before[key] == getattr(walk, f"rows_{name}")
+    ref = fused_conv.forward_y_reference(p, y, 1100, 300, flags)
+    assert float((got - ref).abs().max()) <= ATOL
+
+
+def test_k1_launch_plans_the_walk_of_its_mirror(cuda):
+    """The C launch's segment length is ``fused_conv.k1_walk``'s."""
+    sms = fused_conv._sm_count(cuda)
+    seg = _build.library("fused_srcnn")["segment_tiles"]
+    for n, h, w in [(8, 2160, 3840), (1, 1024, 1024), (1, 2048, 2048), (1, 13, 1000),
+                    (16, 1100, 240), (1, 1100, 240), (3, 1000, 250), (1, 5, 7),
+                    (8, 1080, 1920), (2, 70000, 61)]:
+        for s in (sms, 114, 7, 1):
+            assert seg(n, h, w, s) == fused_conv.k1_walk(n, h, w, s).seg, (n, h, w, s)
+
+
+@pytest.mark.parametrize("flags", [None, (0, 1, 1, 0)])
+def test_k1_cuts_follow_the_strip_walk(cuda, flags):
+    """K1's cuts store each output row from the ring row that computes it,
+    carried or not: on planes whose walk carries, each cut equals its plain
+    version, and the full cut the production kernel."""
+    from libsrcnn_tpu_torch.kernels import ablation
+
+    p = srcnn.load_params(cuda)
+    ys = torch.stack([_plane(1112, 252, 72 + i, cuda) for i in range(2)])
+    assert _walk(2, 1100, 240, cuda).rows_carried > 0
+    for stage in ablation.STAGES["K1"]:
+        got = ablation.forward_y_cut("K1", stage, p, ys, 1100, 240, flags)
+        if stage == "full":
+            assert torch.equal(got, fused_conv.forward_y(p, ys, 1100, 240, flags))
+        _assert_cut_close("K1", stage, got, ablation.forward_y_cut_reference(
+            "K1", stage, p, ys, 1100, 240, flags), (p, ys, 1100, 240, flags))
 
 
 @pytest.mark.parametrize("kernel", ["K1", *BF16_MODES])
